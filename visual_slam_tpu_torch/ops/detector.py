@@ -1,0 +1,97 @@
+"""Multi-scale ORB detector: pyramid -> FAST -> NMS -> grid top-k ->
+moments + patches (kernel K1) -> steered BRIEF
+(port of ``visual_slam_tpu.ops.detector``).
+
+The output always has exactly ``num_features`` slots with a validity mask.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import fast as fast_ops
+from . import orb as orb_ops
+from . import pyramid as pyr_ops
+from .patch_kernels import patches_and_moments
+
+
+class Features(NamedTuple):
+    """Fixed-capacity per-frame feature block."""
+
+    xy: torch.Tensor  # (K, 2) float32, full-resolution (x, y) pixels
+    response: torch.Tensor  # (K,) float32
+    angle: torch.Tensor  # (K,) float32 radians
+    octave: torch.Tensor  # (K,) int32 pyramid level
+    size: torch.Tensor  # (K,) float32 patch diameter at full resolution
+    desc: torch.Tensor  # (K, 8) int32 words of the 256-bit descriptor
+    valid: torch.Tensor  # (K,) bool
+
+
+def level_quotas(num_features: int, n_levels: int, scale: float) -> list[int]:
+    """Feature budget per pyramid level (geometric decay by 1/scale)."""
+    ws = [(1.0 / scale) ** l for l in range(n_levels)]
+    total = sum(ws)
+    ks = [max(int(round(num_features * w / total)), 1) for w in ws]
+    ks[0] += num_features - sum(ks)
+    return ks
+
+
+def detect_level(
+    lvl: torch.Tensor, k: int, threshold: float, grid: int, edge_margin: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """FAST scores, NMS, interior mask and grid top-k on one level:
+    (yx (k, 2) int32, response (k,), valid (k,), subpixel offsets (k, 2))."""
+    Hl, Wl = lvl.shape
+    scores = fast_ops.nms(fast_ops.fast_scores(lvl, threshold))
+    scores = torch.where(fast_ops.interior_mask(Hl, Wl, edge_margin, lvl.device), scores, 0.0)
+    yx, resp, valid = fast_ops.top_k_grid(scores, k, grid=grid)
+    return yx, resp, valid, fast_ops.subpixel_offsets(scores, yx)
+
+
+def detect_and_describe(
+    img: torch.Tensor,
+    sampling: torch.Tensor,
+    moment_w: torch.Tensor,
+    num_features: int = 1000,
+    threshold: float = 20.0,
+    n_levels: int = 4,
+    scale: float = 1.2,
+    grid: int = 8,
+    edge_margin: int = 16,
+) -> Features:
+    """Full ORB front end on one (H, W) grayscale image in [0, 255].
+
+    ``sampling`` is the (961, 15360) rotated-BRIEF matrix and ``moment_w``
+    the (961, 2) moment weights, both on the image's device."""
+    H0, W0 = img.shape
+    img = img.to(torch.float32)
+    levels = pyr_ops.build_pyramid(img, n_levels, scale)
+    quotas = level_quotas(num_features, n_levels, scale)
+    outs = []
+    for l, (lvl, k_l) in enumerate(zip(levels, quotas)):
+        Hl, Wl = lvl.shape
+        yx, resp, valid, sub = detect_level(lvl, k_l, threshold, grid, edge_margin)
+        blurred = pyr_ops.gaussian_blur(lvl, sigma=2.0, radius=3)
+        mom, patches = patches_and_moments(lvl.contiguous(), blurred, yx, moment_w)
+        ang = torch.atan2(mom[:, 1], mom[:, 0])
+        sx = W0 / Wl
+        sy = H0 / Hl
+        xy_full = torch.stack(
+            [(yx[:, 1].to(torch.float32) + sub[:, 1]) * sx, (yx[:, 0].to(torch.float32) + sub[:, 0]) * sy],
+            dim=-1,
+        )
+        outs.append(
+            Features(
+                xy=xy_full,
+                response=resp,
+                angle=ang,
+                octave=torch.full((k_l,), l, dtype=torch.int32, device=img.device),
+                size=torch.full(
+                    (k_l,), orb_ops.PATCH * (sx + sy) * 0.5, dtype=torch.float32, device=img.device
+                ),
+                desc=orb_ops.descriptors(patches, ang, sampling),
+                valid=valid,
+            )
+        )
+    return Features(*[torch.cat([getattr(o, f) for o in outs], dim=0) for f in Features._fields])

@@ -1,0 +1,145 @@
+"""Perspective-n-Point pose estimation: fixed-budget RANSAC over DLT
+hypotheses + Gauss-Newton SE(3) refinement (port of ``visual_slam_tpu.ops.pnp``).
+
+The JAX version ``vmap``s over hypotheses; here every function takes
+leading batch dimensions instead, so the 128 hypotheses are one batch.
+No function reads a value back to the host.
+"""
+from __future__ import annotations
+
+import torch
+
+from .epipolar import _sample_minimal_sets
+from .lie import make_T, project_to_so3, so3_exp
+from .linalg import nullspace_vector
+
+_EPS = 1e-9
+
+
+def pnp_dlt(
+    pts3d: torch.Tensor, xy: torch.Tensor, w: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weighted DLT pose from (..., N, 3) points and (..., N, 2) normalized
+    observations with (..., N) weights; needs >= 6 effective points.
+    Returns (R (..., 3, 3), t (..., 3)) world -> camera, cheirality fixed
+    so the weighted mean depth is positive."""
+    X, Y, Z = pts3d[..., 0], pts3d[..., 1], pts3d[..., 2]
+    u, v = xy[..., 0], xy[..., 1]
+    one = torch.ones_like(X)
+    zero = torch.zeros_like(X)
+    r1 = torch.stack([X, Y, Z, one, zero, zero, zero, zero, -u * X, -u * Y, -u * Z, -u], dim=-1)
+    r2 = torch.stack([zero, zero, zero, zero, X, Y, Z, one, -v * X, -v * Y, -v * Z, -v], dim=-1)
+    A = torch.cat([r1, r2], dim=-2)  # (..., 2N, 12)
+    ww = torch.cat([w, w], dim=-1)
+    AtA = (A * ww[..., None]).transpose(-1, -2) @ A
+    p = nullspace_vector(AtA)
+    P = p.reshape(p.shape[:-1] + (3, 4))
+    M = P[..., :, :3]
+    s = torch.linalg.svdvals(M)
+    lam = torch.clamp(torch.exp(torch.mean(torch.log(torch.clamp(s, min=_EPS)), dim=-1)), min=_EPS)
+    sign = torch.sign(torch.linalg.det(M))
+    sign = torch.where(sign == 0, 1.0, sign)
+    scale = (lam * sign)[..., None]
+    R = project_to_so3(M / scale[..., None])
+    t = P[..., :, 3] / scale
+    z = (pts3d @ R[..., 2, :, None])[..., 0] + t[..., 2:3]
+    flip = torch.sum(z * w, dim=-1) < 0
+    R = torch.where(flip[..., None, None], -R, R)
+    R = project_to_so3(R)
+    t = torch.where(flip[..., None], -t, t)
+    return R, t
+
+
+def _reproj_err2(R: torch.Tensor, t: torch.Tensor, pts3d: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Squared reprojection error in normalized coordinates, (..., N);
+    points behind the camera get 1e6."""
+    pc = pts3d @ R.transpose(-1, -2) + t[..., None, :]
+    z = pc[..., 2]
+    zs = torch.where(torch.abs(z) < _EPS, _EPS, z)
+    proj = pc[..., :2] / zs[..., None]
+    e2 = torch.sum((proj - xy) ** 2, dim=-1)
+    return torch.where(z > _EPS, e2, 1e6)
+
+
+def refine_pose_gn(
+    R0: torch.Tensor,
+    t0: torch.Tensor,
+    pts3d: torch.Tensor,
+    xy: torch.Tensor,
+    w: torch.Tensor,
+    iters: int = 8,
+    huber: torch.Tensor | float = 3e-3,
+    damping: float = 1e-6,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Damped Huber-IRLS Gauss-Newton on SE(3), left update T <- exp(xi) T,
+    fixed iteration count. R0 (..., 3, 3) and t0 (..., 3) may carry a
+    batch of poses; ``w`` (..., N) broadcasts against it."""
+    R, t = R0, t0
+    eye6 = torch.eye(6, dtype=R0.dtype, device=R0.device)
+    for _ in range(iters):
+        pc = pts3d @ R.transpose(-1, -2) + t[..., None, :]
+        x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
+        zs = torch.where(torch.abs(z) < _EPS, _EPS, z)
+        inv_z = 1.0 / zs
+        u = x * inv_z
+        v = y * inv_z
+        r = torch.stack([u - xy[..., 0], v - xy[..., 1]], dim=-1)  # (..., N, 2)
+        zero = torch.zeros_like(u)
+        Ju = torch.stack([inv_z, zero, -u * inv_z, -u * v, 1.0 + u * u, -v], dim=-1)
+        Jv = torch.stack([zero, inv_z, -v * inv_z, -(1.0 + v * v), u * v, u], dim=-1)
+        rn = torch.linalg.vector_norm(r, dim=-1)
+        hw = torch.where(rn <= huber, 1.0, huber / torch.clamp(rn, min=_EPS))
+        ww = w * hw * (z > _EPS)
+        J = torch.stack([Ju, Jv], dim=-2)  # (..., N, 2, 6)
+        JtJ = torch.einsum("...nif,...n,...nig->...fg", J, ww, J)
+        Jtr = torch.einsum("...nif,...n,...ni->...f", J, ww, r)
+        # SPD damped normal equations: Cholesky and two triangular solves.
+        # cholesky_ex reads no error status back to the host, which
+        # linalg.cholesky does on every call.
+        L, _ = torch.linalg.cholesky_ex(JtJ + damping * eye6)
+        y = torch.linalg.solve_triangular(L, Jtr[..., None], upper=False)
+        xi = -torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)[..., 0]
+        dT = so3_exp(xi[..., 3:])
+        R = dT @ R
+        t = (dT @ t[..., None])[..., 0] + xi[..., :3]
+    return R, t
+
+
+def ransac_pnp(
+    pts3d: torch.Tensor,
+    xy: torch.Tensor,
+    mask: torch.Tensor,
+    gen: torch.Generator | None = None,
+    n_hyp: int = 256,
+    thresh: torch.Tensor | float = 6e-3,
+    refine_iters: int = 8,
+    sample_idx: torch.Tensor | None = None,
+) -> dict:
+    """Fixed-budget RANSAC PnP in normalized image coordinates: ``n_hyp``
+    6-point DLT hypotheses, two Huber-GN steps each (LO-RANSAC), truncated
+    cost, argmin, then a GN polish on the winner's inliers.
+
+    The minimal sets come from ``gen``, or are given as ``sample_idx``
+    (n_hyp, 6) in its place (the tests feed the JAX sampler's draws).
+    Returns dict(R, t, T (4, 4), inliers (N,), n_inliers, ok)."""
+    if sample_idx is None:
+        sample_idx = _sample_minimal_sets(gen, mask, n_hyp, 6)
+    idx = sample_idx.long()
+    w6 = torch.ones(idx.shape, dtype=xy.dtype, device=xy.device)
+    Rs, ts = pnp_dlt(pts3d[idx], xy[idx], w6)
+    mask_f = mask.to(xy.dtype)
+    Rs, ts = refine_pose_gn(Rs, ts, pts3d, xy, mask_f, iters=2, huber=4.0 * thresh)
+    errs = _reproj_err2(Rs, ts, pts3d, xy)  # (H, N)
+    t2 = thresh * thresh
+    cost = torch.where(mask[None, :], torch.clamp(errs, max=t2), 0.0).sum(-1)
+    best = torch.argmin(cost)[None]  # index_select: indexing by a 0-d tensor reads it on the host
+    R0, t0 = Rs.index_select(0, best)[0], ts.index_select(0, best)[0]
+    inl0 = (_reproj_err2(R0, t0, pts3d, xy) < t2) & mask
+    R, t = refine_pose_gn(R0, t0, pts3d, xy, inl0.to(xy.dtype), iters=refine_iters, huber=thresh)
+    inliers = (_reproj_err2(R, t, pts3d, xy) < t2) & mask
+    better = inliers.sum() >= inl0.sum()
+    R = torch.where(better, R, R0)
+    t = torch.where(better, t, t0)
+    inliers = torch.where(better, inliers, inl0)
+    n_inl = inliers.sum()
+    return {"R": R, "t": t, "T": make_T(R, t), "inliers": inliers, "n_inliers": n_inl, "ok": n_inl >= 6}
