@@ -8,8 +8,23 @@ ROOT = Path(__file__).resolve().parents[1]
 MODULES = [
     "visual_slam_tpu_torch",
     "visual_slam_tpu_torch._build",
+    "visual_slam_tpu_torch.camera",
+    "visual_slam_tpu_torch.config",
     "visual_slam_tpu_torch.interop",
+    "visual_slam_tpu_torch.loop_closing",
+    "visual_slam_tpu_torch.loop_closing.loop_closing",
+    "visual_slam_tpu_torch.loop_closing.pose_graph",
+    "visual_slam_tpu_torch.loop_closing.signature",
+    "visual_slam_tpu_torch.map",
+    "visual_slam_tpu_torch.map.frame",
+    "visual_slam_tpu_torch.map.keyframe",
+    "visual_slam_tpu_torch.map.map",
+    "visual_slam_tpu_torch.map.map_point",
+    "visual_slam_tpu_torch.map.observation",
+    "visual_slam_tpu_torch.map.pose",
     "visual_slam_tpu_torch.pipeline",
+    "visual_slam_tpu_torch.sensor_type",
+    "visual_slam_tpu_torch.utils.metrics",
     "visual_slam_tpu_torch.ops.detector",
     "visual_slam_tpu_torch.ops.epipolar",
     "visual_slam_tpu_torch.ops.fast",

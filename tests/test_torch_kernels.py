@@ -1,4 +1,4 @@
-"""Kernels K1-K3 of the torch port: each plain version against the JAX
+"""Kernels K1-K5 of the torch port: each plain version against the JAX
 package (XLA path and Pallas interpret mode) on the CPU, and each CUDA
 kernel against its plain version on the card (marked ``cuda``).
 
@@ -12,7 +12,12 @@ import torch
 
 from visual_slam_tpu_torch.ops import match_kernels as mk
 from visual_slam_tpu_torch.ops import orb as torb
-from visual_slam_tpu_torch.ops.patch_kernels import patches_and_moments, patches_and_moments_ref
+from visual_slam_tpu_torch.ops.patch_kernels import (
+    extract_patches32,
+    extract_patches32_ref,
+    patches_and_moments,
+    patches_and_moments_ref,
+)
 
 torch.set_num_threads(1)
 
@@ -175,6 +180,139 @@ def test_hamming_top2_kernel_matches_ref(cuda):
     assert mk.hamming_top2.launches == before + 1
     for a, b in zip(out, mk.hamming_top2_ref(*args)):
         assert torch.equal(a, b)
+
+
+# --- K4: Hamming top-2 against C candidate blocks ----------------------------
+
+
+def _batched_fixture(rng, k1=192, k2=160, C=3):
+    """test_pallas_batched_equals_xla's shapes: C random candidate blocks
+    with planted near-duplicates, row and column ties and ~10% invalid
+    rows, plus one all-invalid block (loop closing's padding)."""
+    d1 = _packed(rng, k1)
+    v1 = rng.random(k1) > 0.1
+    d2 = np.stack([_packed(rng, k2) for _ in range(C + 1)])
+    v2 = rng.random((C + 1, k2)) > 0.1
+    for c in range(C):
+        near = rng.choice(k1, 60, replace=False)
+        d2[c, :60] = d1[near] ^ (rng.random((60, 8)) < 0.03).astype(np.uint32)
+        d2[c, 80:90] = d2[c, :10]  # train ties: argbest to the lower column, second == best
+    d1[100:110] = d1[near[10:20]]  # query ties: the column argmin takes the lower row
+    v2[C] = False
+    angles = (rng.uniform(-np.pi, np.pi, k1).astype(np.float32),
+              rng.uniform(-np.pi, np.pi, (C + 1, k2)).astype(np.float32))
+    return d1, v1, d2, v2, angles
+
+
+def test_hamming_top2_batched_ref_matches_jax(jnp):
+    """Plain K4 against the per-candidate XLA path (min2 and argmin of
+    hamming_distance_matrix, as lax.map over match_descriptors computes
+    them) and hamming_top2_batched in interpret mode: exact everywhere
+    against XLA, including the all-invalid block (best = second = BIG,
+    argbest 0, col_argmin 0); against the Pallas kernel exact, with the
+    column argmin compared where the column has a valid entry."""
+    from visual_slam_tpu.ops import matching as jm
+    from visual_slam_tpu.ops.orb import unpack_bits
+    from visual_slam_tpu.ops.pallas_kernels import hamming_top2_batched
+
+    rng = np.random.default_rng(19)
+    d1, v1, d2, v2, _ = _batched_fixture(rng)
+    best, second, arg, colarg = mk.hamming_top2_batched(
+        _i32(d1), _i32(d2), torch.from_numpy(v1), torch.from_numpy(v2)
+    )
+    assert best.shape == (4, 192) and colarg.shape == (4, 160) and arg.dtype == colarg.dtype == torch.int32
+    for c in range(4):
+        dist = jm.hamming_distance_matrix(jnp.asarray(d1), jnp.asarray(d2[c]), jnp.asarray(v1), jnp.asarray(v2[c]))
+        b_x, s_x, a_x = (np.asarray(x) for x in jm.min2(dist))
+        np.testing.assert_array_equal(best[c].numpy(), b_x)
+        np.testing.assert_array_equal(second[c].numpy(), s_x)
+        np.testing.assert_array_equal(arg[c].numpy(), a_x)
+        np.testing.assert_array_equal(colarg[c].numpy(), np.asarray(jnp.argmin(dist, axis=0)))
+    assert (best[3] == mk.BIG).all() and (second[3] == mk.BIG).all()
+    assert (arg[3] == 0).all() and (colarg[3] == 0).all()
+
+    b1, b2 = unpack_bits(jnp.asarray(d1)), unpack_bits(jnp.asarray(d2))
+    pb, ps, pa, pc = hamming_top2_batched(
+        b1, b1.astype(jnp.float32).sum(-1), jnp.asarray(v1),
+        b2, b2.astype(jnp.float32).sum(-1), jnp.asarray(v2), interpret=True,
+    )
+    np.testing.assert_array_equal(best.numpy(), np.asarray(pb))
+    np.testing.assert_array_equal(second.numpy(), np.asarray(ps))
+    np.testing.assert_array_equal(arg.numpy(), np.asarray(pa))
+    col_ok = v2 & v1.any()  # columns with a valid entry
+    np.testing.assert_array_equal(colarg.numpy()[col_ok], np.asarray(pc)[col_ok])
+
+
+def test_match_descriptors_batched_matches_jax(jnp):
+    """The batched matcher (K4, ratio test, cross-check, unique_train,
+    orientation filter per candidate) against JAX's CPU path, lax.map over
+    match_descriptors: train_idx, valid and n_matches exact."""
+    from visual_slam_tpu.ops import matching as jm
+    from visual_slam_tpu_torch.ops.matching import match_descriptors_batched
+
+    rng = np.random.default_rng(23)
+    d1, v1, d2, v2, (a1, a2) = _batched_fixture(rng)
+    a2[:, :60] = a1[:60][None] - 0.3  # a dominant rotation bin among the planted matches
+    ref = jm.match_descriptors_batched(
+        jnp.asarray(d1), jnp.asarray(d2), jnp.asarray(v1), jnp.asarray(v2), jnp.asarray(a1), jnp.asarray(a2)
+    )
+    got = match_descriptors_batched(
+        _i32(d1), _i32(d2), torch.from_numpy(v1), torch.from_numpy(v2), torch.from_numpy(a1), torch.from_numpy(a2)
+    )
+    n = np.asarray(ref["n_matches"])
+    assert n[:3].min() > 5 and n[3] == 0
+    np.testing.assert_array_equal(got["n_matches"].numpy(), n)
+    np.testing.assert_array_equal(got["valid"].numpy(), np.asarray(ref["valid"]))
+    np.testing.assert_array_equal(got["train_idx"].numpy(), np.asarray(ref["train_idx"]))
+    np.testing.assert_array_equal(got["distance"].numpy(), np.asarray(ref["distance"]))
+
+
+@pytest.mark.cuda
+def test_hamming_top2_batched_kernel_matches_ref(cuda):
+    """Loop closing's shape: a 2000-row query against 8 real and 56
+    all-invalid 2000-column blocks."""
+    rng = np.random.default_rng(24)
+    d1, v1, d2, v2, _ = _batched_fixture(rng, 2000, 2000, 8)
+    d2 = np.concatenate([d2, np.repeat(d2[:1], 55, 0)])
+    v2 = np.concatenate([v2, np.zeros((55, 2000), bool)])
+    args = [_i32(d1).to(cuda), _i32(d2).to(cuda), torch.from_numpy(v1).to(cuda), torch.from_numpy(v2).to(cuda)]
+    before = mk.hamming_top2_batched.launches
+    out = mk.hamming_top2_batched(*args)
+    torch.cuda.synchronize()
+    assert mk.hamming_top2_batched.launches == before + 1
+    for a, b in zip(out, mk.hamming_top2_batched_ref(*args)):
+        assert torch.equal(a, b)
+
+
+# --- K5: 32x32 window gather -------------------------------------------------
+
+
+def test_extract_patches32_ref_matches_jax(jnp):
+    """Plain K5 against extract_patches32_pallas in interpret mode, exact,
+    at 120x160 with keypoints on all four borders and corners; its top-left
+    31x31 is orb.extract_patches' window."""
+    from visual_slam_tpu.ops import orb as jorb
+    from visual_slam_tpu.ops.pallas_patches import extract_patches32_pallas
+
+    rng = np.random.default_rng(25)
+    img, _, yx = _image_and_keypoints(rng, K=48)
+    yx[4:12] = [[0, 50], [119, 70], [60, 0], [30, 159], [1, 1], [118, 158], [0, 80], [100, 159]]
+    got = extract_patches32_ref(torch.from_numpy(img), torch.from_numpy(yx)).numpy()
+    assert got.shape == (48, 32, 32)
+    np.testing.assert_array_equal(got, np.asarray(extract_patches32_pallas(jnp.asarray(img), jnp.asarray(yx), interpret=True)))
+    np.testing.assert_array_equal(got[:, :31, :31], np.asarray(jorb.extract_patches(jnp.asarray(img), jnp.asarray(yx))))
+
+
+@pytest.mark.cuda
+def test_extract_patches32_kernel_matches_ref(cuda):
+    rng = np.random.default_rng(26)
+    img, _, yx = _image_and_keypoints(rng, H=376, W=1240, K=2000)
+    args = [torch.from_numpy(img).to(cuda), torch.from_numpy(yx).to(cuda)]
+    before = extract_patches32.launches
+    out = extract_patches32(*args)
+    torch.cuda.synchronize()
+    assert extract_patches32.launches == before + 1
+    assert torch.equal(out, extract_patches32_ref(*args))
 
 
 # --- K3: guided top-2 --------------------------------------------------------

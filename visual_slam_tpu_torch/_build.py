@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels and bind them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, ``build/libvslam_kernels.so``, at first use. The library is
-rebuilt when the hash of the sources and flags changes. Nothing here runs
+At first use, one ``nvcc`` per ``csrc/*.cu`` (all started together)
+compiles each source to an object, and one more links them into a shared
+library with a plain C interface, ``build/libvslam_kernels.so``. The library
+is rebuilt when the hash of the sources and flags changes. Nothing here runs
 at import: the CPU tests import every module on a machine with no ``nvcc``.
 """
 from __future__ import annotations
@@ -23,7 +24,7 @@ LIB = BUILD / "libvslam_kernels.so"
 STAMP = BUILD / "libvslam_kernels.sha256"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -32,8 +33,9 @@ _F = ctypes.c_float
 # C entry point -> argtypes; every pointer (and the stream) is a c_void_p.
 SIGNATURES = {
     "vslam_patches_moments": [_P, _P, _I, _I, _P, _I, _P, _P, _P],
-    "vslam_hamming_top2": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    "vslam_hamming_top2": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
     "vslam_guided_top2": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _F, _P, _P, _P, _P],
+    "vslam_extract_patches32": [_P, _I, _I, _P, _I, _P, _P],
 }
 
 _lib = None
@@ -65,14 +67,29 @@ def build(force: bool = False) -> Path:
     if not force and LIB.exists() and STAMP.exists() and STAMP.read_text() == digest:
         return LIB
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = LIB.with_name(f"{LIB.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, LIB)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    tmp = LIB.with_name(f"{LIB.name}.{tag}")
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD / f"{src.stem}.{tag}.o" for src in srcs]
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(srcs, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, LIB)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     STAMP.write_text(digest)
     return LIB
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands at once, wait for every one, raise on any failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
 
 
 def lib() -> ctypes.CDLL:

@@ -1,27 +1,35 @@
-// K2: fused Hamming matcher -- per-query best/second/argbest and per-train argmin.
+// K2 and K4: fused Hamming matcher -- per-query best/second/argbest and
+// per-train argmin, for one query block against C candidate train blocks.
 //
-// Replaces visual_slam_tpu/ops/pallas_kernels.py::hamming_top2_batched with one
-// candidate (pallas_call at pallas_kernels.py:126), reached through
-// hamming_top2 and match_nn_pallas from ops/matching.py::match_descriptors.
-// For K1 query x K2 train 256-bit descriptors with validity masks: per query
-// row the best and second distance and the argbest (lowest column on ties);
-// per train column the query row of its minimum (lowest row on ties), for the
-// cross-check. Invalid pairs read as BIG = 1e9.
+// Replaces visual_slam_tpu/ops/pallas_kernels.py::hamming_top2_batched
+// (pallas_call at pallas_kernels.py:126). With C = 1 it is K2, reached
+// through hamming_top2 from ops/matching.py::match_descriptors (tracking);
+// with C > 1 it is K4, reached through match_descriptors_batched from loop
+// closing's detect (C = 64 there: 8 shortlisted keyframes and 56 all-invalid
+// padding blocks). For K1 query x K2 train 256-bit descriptors with validity
+// masks, per candidate: per query row the best and second distance and the
+// argbest (lowest column on ties); per train column the query row of its
+// minimum (lowest row on ties), for the cross-check. Invalid pairs read as
+// BIG = 1e9; an all-invalid row gives best = second = BIG and argbest 0, an
+// all-invalid column col_argmin 0, as argmin over all-BIG does.
 //
-// What bounds it: integer work, K1*K2*8 XOR + popcount pairs (32M at
-// 2000 x 2000), plus the top-2 bookkeeping per pair; the inputs are 128 KB and
-// the outputs 32 KB, so memory traffic is negligible.
+// What bounds it: integer work, C*K1*K2*8 XOR + popcount pairs (32M per
+// candidate at 2000 x 2000), plus the top-2 bookkeeping per pair; the inputs
+// are 64 KB per candidate and the outputs 24 KB, so memory traffic is small.
 // What the design does about it: distances are exact in integers (XOR +
-// __popc on the 8 packed words), instead of the TPU's bf16 bit matmul. A block
-// holds 32 query rows, one per lane, and SPLIT warps that each scan a
-// contiguous slice of the train columns, so the card sees K1/32 * SPLIT warps
-// rather than K1/32. The whole train block sits in shared memory (32 B a
-// column, 64 KB at K2 = 2000) and every lane of a warp reads the same column,
-// a broadcast. The warps' partial top-2 merge in column order in shared
-// memory. The column argmin reduces (d*K1 + row) over the warp's 32 rows with
-// one __reduce_min_sync, keeps it per block in shared memory, and leaves the
-// block with one atomicMin per column into an INT_MAX-initialised buffer; a
-// column with no valid entry decodes to row 0, as argmin over all-BIG does.
+// __popc on the 8 packed words), instead of the TPU's bf16 bit matmul. The
+// grid is (query tiles, candidates): a block holds 32 query rows, one per
+// lane, against one candidate, and SPLIT warps that each scan a contiguous
+// slice of that candidate's train columns, so the card sees K1/32 * C blocks.
+// The candidate's train block sits in shared memory (37 B a column, 74 KB at
+// K2 = 2000: three blocks fit an SM) and every lane of a warp reads the same
+// column, a broadcast. The warps' partial top-2 merge in column order in
+// shared memory. The column argmin reduces (d*K1 + row) over the warp's 32
+// rows with one __reduce_min_sync, keeps it per block in shared memory, and
+// leaves the block with one atomicMin per column into an INT_MAX-initialised
+// (C, K2) buffer; a column with no valid entry decodes to row 0.
+
+#include <cstddef>
 
 #include <cuda_runtime.h>
 
@@ -44,6 +52,15 @@ __global__ void __launch_bounds__(32 * kSplit) hamming_top2_kernel(
   int* s_enc = reinterpret_cast<int*>(s_desc + 2 * K2);          // (K2,)
   unsigned char* s_valid = reinterpret_cast<unsigned char*>(s_enc + K2);  // (K2,)
   __shared__ int p_best[kSplit][32], p_second[kSplit][32], p_arg[kSplit][32];
+
+  // This block's candidate: offset every per-candidate array.
+  const size_t cand = blockIdx.y;
+  t += cand * K2 * vslam::kWords;
+  tv += cand * K2;
+  colenc += cand * K2;
+  best_out += cand * K1;
+  second_out += cand * K1;
+  arg_out += cand * K1;
 
   const int lane = threadIdx.x;
   const int warp = threadIdx.y;
@@ -96,28 +113,30 @@ __global__ void __launch_bounds__(32 * kSplit) hamming_top2_kernel(
   }
 }
 
-__global__ void decode_colarg(const int* __restrict__ colenc, int K2, int K1, int* __restrict__ colarg) {
+__global__ void decode_colarg(const int* __restrict__ colenc, int n, int K1, int* __restrict__ colarg) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c < K2) colarg[c] = colenc[c] == INT_MAX ? 0 : colenc[c] % K1;
+  if (c < n) colarg[c] = colenc[c] == INT_MAX ? 0 : colenc[c] % K1;
 }
 
 }  // namespace
 
-// q: (K1, 8) int32 words, qv: (K1,) bool; t: (K2, 8), tv: (K2,) bool.
-// Outputs: best, second (K1,) f32; arg (K1,) int32; colarg (K2,) int32.
-// colenc: (K2,) int32 scratch. Needs K1*257 < 2^31 and 37*K2 bytes of shared
-// memory (K2 <= 6000). Returns cudaGetLastError() after the launches.
+// q: (K1, 8) int32 words, qv: (K1,) bool; t: (C, K2, 8), tv: (C, K2) bool.
+// Outputs: best, second (C, K1) f32; arg (C, K1) int32; colarg (C, K2) int32.
+// colenc: (C, K2) int32 scratch. Needs K1*257 < 2^31, C <= 65535 and 37*K2
+// bytes of shared memory (K2 <= 6000). Returns cudaGetLastError() after the
+// launches.
 extern "C" int vslam_hamming_top2(const int* q, const unsigned char* qv, int K1, const int* t,
-                                  const unsigned char* tv, int K2, float* best, float* second, int* arg,
+                                  const unsigned char* tv, int K2, int C, float* best, float* second, int* arg,
                                   int* colenc, int* colarg, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(K2) * (2 * sizeof(uint4) + sizeof(int) + 1);
   cudaError_t err = cudaFuncSetAttribute(hamming_top2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  vslam::fill_int<<<(K2 + 255) / 256, 256, 0, s>>>(colenc, K2, INT_MAX);
-  hamming_top2_kernel<<<(K1 + 31) / 32, dim3(32, kSplit), smem, s>>>(q, qv, K1, t, tv, K2, best, second, arg,
-                                                                      colenc);
-  decode_colarg<<<(K2 + 255) / 256, 256, 0, s>>>(colenc, K2, K1, colarg);
+  const int n = C * K2;
+  vslam::fill_int<<<(n + 255) / 256, 256, 0, s>>>(colenc, n, INT_MAX);
+  hamming_top2_kernel<<<dim3((K1 + 31) / 32, C), dim3(32, kSplit), smem, s>>>(q, qv, K1, t, tv, K2, best, second,
+                                                                               arg, colenc);
+  decode_colarg<<<(n + 255) / 256, 256, 0, s>>>(colenc, n, K1, colarg);
   return static_cast<int>(cudaGetLastError());
 }

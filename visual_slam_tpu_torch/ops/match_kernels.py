@@ -1,33 +1,33 @@
-"""Kernels K2 (Hamming top-2) and K3 (guided top-2) and their plain versions.
+"""Kernels K2 and K4 (Hamming top-2, one and C candidate blocks), K3
+(guided top-2) and their plain versions.
 
-Ports of ``visual_slam_tpu.ops.pallas_kernels.hamming_top2`` and
-``guided_top2_pallas``; the CUDA kernels are ``csrc/hamming_top2.cu`` and
-``csrc/guided_top2.cu``. Descriptors are (N, 8) int32 words. Distances are
-exact integers either way, so kernel and plain version agree exactly,
-ties included.
+Ports of ``visual_slam_tpu.ops.pallas_kernels.hamming_top2`` (K2) and
+``hamming_top2_batched`` with C > 1 (K4), both one CUDA kernel,
+``csrc/hamming_top2.cu``, launched with C = 1 or C; and of
+``guided_top2_pallas`` (K3), ``csrc/guided_top2.cu``. Descriptors are
+(N, 8) int32 words. Distances are exact integers either way, so kernel and
+plain version agree exactly, ties included.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _build
+from .orb import unpack_bits
 
 BIG = 1e9
 _INT_MAX = 2**31 - 1
 
 
-def popcount32(x: torch.Tensor) -> torch.Tensor:
-    """Bits set in each 32-bit word of an int32 tensor (SWAR, in int64)."""
-    x = x.to(torch.int64) & 0xFFFFFFFF
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return (x * 0x01010101 & 0xFFFFFFFF) >> 24
-
-
 def hamming_distances(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.Tensor:
-    """(K1, 8) x (K2, 8) int32 words -> (K1, K2) int64 Hamming distances."""
-    return popcount32(desc1[:, None, :] ^ desc2[None, :, :]).sum(-1)
+    """(K1, 8) x (K2, 8) int32 words -> (K1, K2) int64 Hamming distances,
+    as the JAX package's XLA path computes them: |a| + |b| - 2 a.b over the
+    unpacked 0/1 bits. Every partial sum is an integer below 2^24, so the
+    f32 product is exact in any summation order (TF32 is off)."""
+    b1 = unpack_bits(desc1)
+    b2 = unpack_bits(desc2)
+    d = b1.sum(-1)[:, None] + b2.sum(-1)[None, :] - 2.0 * (b1 @ b2.T)
+    return d.to(torch.int64)
 
 
 def hamming_distance_matrix(
@@ -57,6 +57,18 @@ def hamming_top2_ref(
     best, second, arg = top2(d)
     colarg = torch.argmin(d, dim=0)
     return best, second, arg.to(torch.int32), colarg.to(torch.int32)
+
+
+def hamming_top2_batched_ref(
+    desc_q: torch.Tensor, desc_c: torch.Tensor, valid_q: torch.Tensor, valid_c: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K4: ``hamming_top2_ref`` of the (K1, 8) query block
+    against each of the (C, K2, 8) candidate blocks, stacked: best, second
+    (C, K1) f32, argbest (C, K1) int32, col_argmin (C, K2) int32. One
+    candidate at a time, as JAX's ``lax.map`` path: all C distance tables
+    at once would hold C*K1*K2 values, 256M at C = 64 and K1 = K2 = 2000."""
+    outs = [hamming_top2_ref(desc_q, desc_c[c], valid_q, valid_c[c]) for c in range(desc_c.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
 
 
 def guided_top2_ref(
@@ -98,38 +110,64 @@ def _device(fn: str, t: torch.Tensor) -> str:
     return t.device.type
 
 
-def hamming_top2(
-    desc1: torch.Tensor, desc2: torch.Tensor, valid1: torch.Tensor, valid2: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2. CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    if _device("hamming_top2", desc1) == "cpu":
-        return hamming_top2_ref(desc1, desc2, valid1, valid2)
-    K1, K2 = desc1.shape[0], desc2.shape[0]
-    dev = desc1.device
-    _build.check_args("hamming_top2", dev, (
-        ("desc1", desc1, torch.int32, (K1, 8)),
-        ("desc2", desc2, torch.int32, (K2, 8)),
-        ("valid1", valid1, torch.bool, (K1,)),
-        ("valid2", valid2, torch.bool, (K2,)),
+def _launch_hamming_top2(name, desc_q, desc_c, valid_q, valid_c):
+    """One launch of ``csrc/hamming_top2.cu`` over (C, K2, 8) candidate
+    blocks; outputs carry the leading C axis."""
+    K1 = desc_q.shape[0]
+    C, K2 = desc_c.shape[:2]
+    dev = desc_q.device
+    _build.check_args(name, dev, (
+        ("desc_q", desc_q, torch.int32, (K1, 8)),
+        ("desc_c", desc_c, torch.int32, (C, K2, 8)),
+        ("valid_q", valid_q, torch.bool, (K1,)),
+        ("valid_c", valid_c, torch.bool, (C, K2)),
     ))
-    if not (0 < K1 and 257 * K1 < _INT_MAX and 0 < K2 <= 5800):
-        raise ValueError(f"hamming_top2: sizes K1={K1}, K2={K2} out of the kernel's range")
-    best = torch.empty(K1, dtype=torch.float32, device=dev)
-    second = torch.empty(K1, dtype=torch.float32, device=dev)
-    arg = torch.empty(K1, dtype=torch.int32, device=dev)
-    colarg = torch.empty(K2, dtype=torch.int32, device=dev)
-    colenc = torch.empty(K2, dtype=torch.int32, device=dev)
+    if not (0 < K1 and 257 * K1 < _INT_MAX and 0 < K2 <= 5800 and 0 < C <= 65535 and C * K2 < _INT_MAX):
+        raise ValueError(f"{name}: sizes K1={K1}, C={C}, K2={K2} out of the kernel's range")
+    best = torch.empty((C, K1), dtype=torch.float32, device=dev)
+    second = torch.empty((C, K1), dtype=torch.float32, device=dev)
+    arg = torch.empty((C, K1), dtype=torch.int32, device=dev)
+    colarg = torch.empty((C, K2), dtype=torch.int32, device=dev)
+    colenc = torch.empty((C, K2), dtype=torch.int32, device=dev)
     rc = _build.lib().vslam_hamming_top2(
-        desc1.data_ptr(), valid1.data_ptr(), K1, desc2.data_ptr(), valid2.data_ptr(), K2,
+        desc_q.data_ptr(), valid_q.data_ptr(), K1, desc_c.data_ptr(), valid_c.data_ptr(), K2, C,
         best.data_ptr(), second.data_ptr(), arg.data_ptr(), colenc.data_ptr(), colarg.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "vslam_hamming_top2")
-    hamming_top2.launches += 1
     return best, second, arg, colarg
 
 
+def hamming_top2(
+    desc1: torch.Tensor, desc2: torch.Tensor, valid1: torch.Tensor, valid2: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2. CPU tensors take the plain version; CUDA tensors launch the kernel
+    with one candidate block."""
+    if _device("hamming_top2", desc1) == "cpu":
+        return hamming_top2_ref(desc1, desc2, valid1, valid2)
+    out = _launch_hamming_top2("hamming_top2", desc1, desc2[None], valid1, valid2[None])
+    hamming_top2.launches += 1
+    return tuple(o[0] for o in out)
+
+
 hamming_top2.launches = 0
+
+
+def hamming_top2_batched(
+    desc_q: torch.Tensor, desc_c: torch.Tensor, valid_q: torch.Tensor, valid_c: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4: one (K1, 8) query block against (C, K2, 8) candidate blocks ->
+    best, second (C, K1) f32, argbest (C, K1) int32, col_argmin (C, K2)
+    int32. CPU tensors take the plain version; CUDA tensors launch the
+    kernel once for all C candidates."""
+    if _device("hamming_top2_batched", desc_q) == "cpu":
+        return hamming_top2_batched_ref(desc_q, desc_c, valid_q, valid_c)
+    out = _launch_hamming_top2("hamming_top2_batched", desc_q, desc_c, valid_q, valid_c)
+    hamming_top2_batched.launches += 1
+    return out
+
+
+hamming_top2_batched.launches = 0
 
 
 def guided_top2(

@@ -1,0 +1,1 @@
+"""Host utilities (port of ``visual_slam_tpu.utils``): trajectory metrics."""
