@@ -26,14 +26,31 @@
    loop onto one of the first keyframes with a lower keyframe ATE, K4's
    launch count, and one detect against the same detect on the CPU through
    the plain versions; prints the detection funnel and times detect/close.
-7. Prints a JSON line of the kernels, then ``{"ok": true, "device": ...}``
+7. Full pipeline: ``bench.bench_full_pipeline``'s deployment through the
+   port's entry points, ``CompiledSLAM(camera, config).track()``, ``flush()``
+   and ``trajectory()``: 64 frames of ``bench.synth_kitti_frames`` (seed 3,
+   1500 sprites, 0.6 m steps) at 376x1240, 2000 features, self-promoting
+   chunks of 8, a heavy (BA) boundary every second promotion, f16 upload,
+   one BA bucket. Bootstrap within 16 frames, warm-up through two heavy
+   cycles (host syncs per chunk counted there), a timed window aligned to
+   the chunk with flush() inside it. Prints FPS, scale-aligned ATE and its
+   share of the path, keyframes, landmarks, BA shapes and costs, the longest
+   call, LOST and brute-recovery counts, K1-K3 launches and peak memory.
+   Fails on a failed bootstrap, a LOST frame, a frame without a pose, a BA
+   cost not finite or above its cost0, no heavy boundary in the timed
+   window, launch counts that disagree with the detects and matches the run
+   made, ATE above FP_ATE_PCT_MAX % of the path, or the first heavy BA
+   solved again on the CPU disagreeing with the card's.
+8. Prints a JSON line of the kernels, then ``{"ok": true, "device": ...}``
    as the last line. Any failure raises and exits nonzero.
 
-K5 has no caller in either package: only phase 3 launches it.
+K5 has no caller in either package: only phase 3 launches it. The
+kernels' launch counts add up the tracking, loop and full-pipeline phases.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import statistics
 import subprocess
@@ -60,6 +77,12 @@ REPS = 20
 LOOP_FRAMES, KF_EVERY, LOOP_SPRITES = 200, 4, 2400
 C_REAL, C_PAD = 8, 64  # shortlist and candidate bucket of LoopClosing.detect
 PG_NODES, PG_LOOPS, PG_ITERS = 256, 8, 10
+# Full pipeline: bench.bench_full_pipeline's world and deployment.
+FP_FRAMES, FP_SPRITES, FP_STEP, FP_SEED, FP_CHUNK, FP_HEAVY = 64, 1500, 0.6, 3, 8, 2
+# ATE gate, % of path: max(2 x 0.279 %, the JAX package's own CPU run of
+# bench_full_pipeline, and 2.0 %).
+FP_ATE_PCT_MAX = 2.0
+BA_COST_RTOL, BA_POSE_ATOL = 1e-3, 1e-3  # the heavy BA on the card against the CPU
 
 
 def log(msg: str) -> None:
@@ -80,6 +103,29 @@ def timed(fn, reps: int = REPS, warmup: int = 3) -> tuple[float, float]:
         torch.cuda.synchronize()
         ts.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(ts), min(ts)
+
+
+@contextlib.contextmanager
+def count_syncs(torch):
+    """Count the host synchronisations inside the block by the port's
+    source line that caused them (``torch.cuda.set_sync_debug_mode``)."""
+    sync_at = collections.Counter()
+
+    def note_sync(message, *args, **kwargs):
+        frames_ = [f for f in traceback.extract_stack() if "visual_slam_tpu_torch" in f.filename]
+        if frames_ and "synchroniz" in str(message).lower():
+            sync_at[f"{frames_[-1].filename.split('visual_slam_tpu_torch/')[-1]}:{frames_[-1].lineno}"] += 1
+
+    shown = warnings.showwarning
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note_sync
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield sync_at
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            warnings.showwarning = shown
 
 
 def make_world_frames(render_mod, np):
@@ -406,6 +452,254 @@ def run_loop_path(torch, np, step, dev, counters):
     return launches
 
 
+def fp_config(Config):
+    """bench.bench_full_pipeline's configuration (its defaults)."""
+    cfg = Config()
+    cfg.feature.num_features = N_FEATURES
+    cfg.feature.num_pyramid_levels = N_LEVELS
+    cfg.feature.grid_cells = GRID
+    cfg.tracking.pnp_hypotheses = N_HYP
+    cfg.tracking.local_map_size = ARENA
+    cfg.tracking.keyframe_interval = 4
+    cfg.tracking.chunk_size = FP_CHUNK
+    cfg.tracking.device_promotion = True
+    cfg.tracking.heavy_boundary_every = FP_HEAVY
+    cfg.tracking.upload_f16 = True
+    cfg.optimization.max_points = 4096
+    cfg.optimization.window_size = 16
+    cfg.optimization.pose_bucket_floor = 32
+    cfg.optimization.point_bucket_floor = 2048
+    cfg.initialization.min_inliers = min(100, max(30, N_FEATURES // 20))
+    return cfg
+
+
+def run_full_pipeline(torch, np, dev, counters):
+    """The deployment bench.bench_full_pipeline times, through the port's
+    entry points: CompiledSLAM(camera, config).track() per frame, flush(),
+    trajectory(). Bootstrap within 16 frames, warm through two heavy cycles
+    (host syncs counted there), a timed window aligned to the chunk with
+    flush() inside it. Returns (launches of ``counters`` over the run,
+    report dict); raises if a gate fails."""
+    import bench
+
+    from visual_slam_tpu_torch.backend.ba import bundle_adjust_robust
+    from visual_slam_tpu_torch.camera import PinholeCamera
+    from visual_slam_tpu_torch.config import Config
+    from visual_slam_tpu_torch.models import CompiledSLAM
+    from visual_slam_tpu_torch.models import compiled_slam as cs_mod
+    from visual_slam_tpu_torch.utils.metrics import ate_rmse
+    from visual_slam_tpu_torch.utils.tree import to_device
+
+    t0 = time.perf_counter()
+    frames, K_np, Ts_gt = bench.synth_kitti_frames(n_frames=FP_FRAMES, H=H, W=W, f=FOCAL, n_sprites=FP_SPRITES,
+                                                   seed=FP_SEED, step=FP_STEP)
+    log(f"full pipeline world: {FP_FRAMES} frames {frames[0].shape}, {FP_SPRITES} sprites, step {FP_STEP} m, "
+        f"rendered in {time.perf_counter() - t0:.2f} s")
+    cfg = fp_config(Config)
+    cam = PinholeCamera(width=W, height=H, K=np.asarray(K_np, np.float64))
+    torch.cuda.reset_peak_memory_stats()
+    slam = CompiledSLAM(cam, cfg, device=dev)
+
+    # Instrumentation around the real calls: what the run detected and
+    # matched (for the launch counts), boundaries, BA solves.
+    seen = collections.Counter()
+    heavy_ms, solves, first_heavy = [], [], {}
+    tracker, step, opt = slam._feature_tracker, slam._step, slam.optimizer
+    detect0, match0, forward0 = tracker.detectAndCompute, tracker.match, step.forward
+    heavy0, brute0, run_chunk0 = slam._boundary_heavy, slam._brute_recover, slam._run_chunk
+    start0, finish0 = opt.solve_start, opt.solve_finish
+
+    def detect(img):
+        seen["detect"] += 1
+        return detect0(img)
+
+    def match(f1, f2, **kw):
+        seen["match"] += 1
+        return match0(f1, f2, **kw)
+
+    def forward(state, img):
+        seen["step"] += 1
+        return forward0(state, img)
+
+    def brute(out, ts):
+        seen["brute"] += 1
+        seen["brute_match"] += min(3, slam.map.num_keyframes())
+        return brute0(out, ts)
+
+    def run_chunk():
+        seen["chunk"] += 1
+        return run_chunk0()
+
+    def boundary_heavy(kf):
+        seen["heavy"] += 1
+        t = time.perf_counter()
+        heavy0(kf)
+        heavy_ms.append((time.perf_counter() - t) * 1e3)
+
+    def solve_start(*a, **kw):
+        pending = start0(*a, **kw)
+        if seen["heavy"] and not first_heavy:
+            first_heavy["pending"] = pending  # its device T and cost stay untouched by the writeback
+        return pending
+
+    def solve_finish(pending):
+        res = finish0(pending)
+        solves.append((res["cost0"], res["cost"], pending["problem"].T_w2c.shape[0], pending["problem"].points.shape[0]))
+        return res
+
+    tracker.detectAndCompute, tracker.match, step.forward = detect, match, forward
+    slam._boundary_heavy, slam._brute_recover, slam._run_chunk = boundary_heavy, brute, run_chunk
+    opt.solve_start, opt.solve_finish = solve_start, solve_finish
+
+    # Host ms by boundary stage, over the timed window: launching the
+    # chunk's steps, the compaction, the fetch (the wait for the device),
+    # adoption, the landmark budget, the heavy BA, re-installing the state.
+    stage_ms = collections.Counter()
+    timing = {"on": False}
+
+    def stage(name, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if timing["on"]:
+                    stage_ms[name] += (time.perf_counter() - t) * 1e3
+        return run
+
+    slam._chunk = stage("dispatch", slam._chunk)
+    slam._compact_fn = stage("compact", slam._compact_fn)
+    slam._adopt_device_keyframe = stage("adopt", slam._adopt_device_keyframe)
+    slam._enforce_budget = stage("budget", slam._enforce_budget)
+    slam._boundary_heavy = stage("heavy BA", slam._boundary_heavy)
+    slam._install_reference = stage("install", slam._install_reference)
+    fetch0 = cs_mod.to_host
+    cs_mod.to_host = stage("fetch", fetch0)
+
+    for fn in counters:
+        fn.launches = 0
+    states = []
+    i = 0
+    t0 = time.perf_counter()
+    while slam.state.name != "OK" and i < 16:
+        states.append(slam.track([frames[i]], timestamp=i * 0.1)["state"])
+        i += 1
+    if slam.state.name != "OK":
+        raise AssertionError(f"bootstrap failed: state {slam.state.name} after {i} frames")
+    boot = i - 1
+    log(f"bootstrap on frame {boot} ({time.perf_counter() - t0:.2f} s): {slam.map.num_keyframes()} keyframes, "
+        f"{slam.map.num_map_points()} landmarks")
+    n_end = len(frames) - (len(frames) - i) % FP_CHUNK
+    warm_end = min(i + 2 * max(FP_CHUNK, 4) * FP_HEAVY + 1, n_end - 2 * max(FP_CHUNK, 8))
+    chunks0 = seen["chunk"]
+    t0 = time.perf_counter()
+    with count_syncs(torch) as sync_at:
+        while i < warm_end:
+            states.append(slam.track([frames[i]], timestamp=i * 0.1)["state"])
+            i += 1
+        torch.cuda.synchronize()
+    n_warm_chunks = seen["chunk"] - chunks0
+    log(f"warm-up frames {boot + 1}-{warm_end - 1} ({time.perf_counter() - t0:.2f} s, host syncs counted): "
+        f"{n_warm_chunks} chunk boundaries, {seen['heavy']} heavy")
+    per_chunk = sum(sync_at.values()) / max(n_warm_chunks, 1)
+    log(f"host syncs per chunk boundary (warm-up, {n_warm_chunks} chunks of {FP_CHUNK} frames, the chunk's steps "
+        f"included): {per_chunk:.1f}; by source line over the warm-up: {dict(sync_at.most_common())}")
+
+    heavy_before, chunks_before = seen["heavy"], seen["chunk"]
+    call_ms = []
+    torch.cuda.synchronize()
+    timing["on"] = True
+    t0 = time.perf_counter()
+    for k in range(i, n_end):
+        tc = time.perf_counter()
+        states.append(slam.track([frames[k]], timestamp=k * 0.1)["state"])
+        call_ms.append((time.perf_counter() - tc) * 1e3)
+    slam.flush()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    timing["on"] = False
+    cs_mod.to_host = fetch0
+    n_chunks = max(seen["chunk"] - chunks_before, 1)
+    per_chunk_ms = {k: round(v / n_chunks, 2) for k, v in stage_ms.items()}
+    per_chunk_ms["other"] = round(dt * 1e3 / n_chunks - sum(stage_ms.values()) / n_chunks, 2)
+    n_timed = n_end - i
+    heavy_timed = seen["heavy"] - heavy_before
+    launches = [fn.launches for fn in counters]
+    ts, Ts = slam.trajectory()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+
+    idx = [int(round(t / 0.1)) for t in ts]
+    est = np.stack([-T[:3, :3].T @ T[:3, 3] for T in Ts])
+    gt = np.stack([-Ts_gt[j][:3, :3].T @ Ts_gt[j][:3, 3] for j in idx])
+    res = ate_rmse(est, gt, align_scale=True)
+    path_len = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    ate_pct = 100.0 * res["rmse"] / max(path_len, 1e-9)
+    fps = n_timed / dt
+    shapes = sorted(getattr(opt, "shapes_seen", set()))
+    report = dict(fps=fps, ate_rmse=res["rmse"], ate_pct_of_path=ate_pct, frames_timed=n_timed,
+                  keyframes=slam.map.num_keyframes(), landmarks=slam.map.num_map_points(),
+                  ba_shapes=[f"{w}x{m}" for (w, m) in shapes], max_call_ms=max(call_ms),
+                  heavy_in_window=heavy_timed, lost=states.count("LOST"), brute_recoveries=seen["brute"],
+                  syncs_per_chunk=per_chunk, heavy_ms=heavy_ms, peak_mib=peak, chunk_ms=per_chunk_ms)
+    log(f"full pipeline: FPS {fps:.2f} ({n_timed} frames timed in {dt:.3f} s, flush inside), ATE "
+        f"{res['rmse']:.4f} m = {ate_pct:.3f} % of a {path_len:.2f} m path (scale-aligned), "
+        f"{report['keyframes']} keyframes, {report['landmarks']} landmarks, ba_shapes {report['ba_shapes']}, "
+        f"max_call_ms {report['max_call_ms']:.1f}")
+    log(f"full pipeline: {seen['chunk']} chunks, {seen['heavy']} heavy boundaries ({heavy_timed} in the timed "
+        f"window), ms per heavy boundary {[round(x, 1) for x in heavy_ms]}, LOST frames {report['lost']}, brute "
+        f"recoveries {seen['brute']}, peak device memory {peak:.1f} MiB")
+    log(f"full pipeline BA solves (cost0 -> cost, W x M): {[(c0, c, f'{w}x{m}') for c0, c, w, m in solves]}")
+    log(f"full pipeline host ms per chunk in the timed window ({n_chunks} chunks of {FP_CHUNK} frames, "
+        f"{dt * 1e3 / n_chunks:.1f} ms each): {per_chunk_ms}")
+
+    # Launch counts: every detect (the initializer's and each step's) runs K1
+    # on each level; every step and every tracker/brute-recovery match runs
+    # K2; every step runs K3 against the arena.
+    expected = [N_LEVELS * (seen["detect"] + seen["step"]), seen["match"] + seen["step"] + seen["brute_match"],
+                seen["step"], 0, 0]
+    log(f"full pipeline launches K1-K5: {launches} (expected {expected}: {seen['detect']} initializer detects, "
+        f"{seen['step']} steps, {seen['match']} initializer matches, {seen['brute_match']} brute-recovery matches)")
+
+    if report["lost"]:
+        raise AssertionError(f"{report['lost']} frames went LOST: {states}")
+    if not (len(ts) == n_end - boot and np.allclose(ts, 0.1 * np.arange(boot, n_end))):
+        raise AssertionError(f"frames {boot}-{n_end - 1} should each have one pose, got timestamps {ts.tolist()}")
+    if not np.isfinite(Ts).all():
+        raise AssertionError("non-finite poses in the trajectory")
+    bad = [(c0, c) for c0, c, _, _ in solves if not (np.isfinite(c0) and np.isfinite(c) and c <= c0)]
+    if bad:
+        raise AssertionError(f"BA solves not finite or ending above cost0: {bad}")
+    if heavy_timed < 1:
+        raise AssertionError("the timed window holds no heavy boundary")
+    if launches != expected:
+        raise AssertionError(f"full pipeline launches K1-K5 {launches} != {expected}")
+    if not ate_pct <= FP_ATE_PCT_MAX:
+        raise AssertionError(f"ATE {ate_pct:.3f} % of path above {FP_ATE_PCT_MAX} %")
+
+    # The first heavy boundary's BA, packed problem solved again on the CPU.
+    pending = first_heavy.get("pending")
+    if pending is None:
+        raise AssertionError("no BA ran at a heavy boundary")
+    ocfg = cfg.optimization
+    n1 = max(ocfg.n_iter // 2, 1)
+    t0 = time.perf_counter()
+    T_cpu, _, info_cpu = bundle_adjust_robust(to_device(pending["problem"], "cpu"), n_iter=n1,
+                                              n_iter2=max(ocfg.n_iter - n1, 1), huber=ocfg.huber_delta / FOCAL,
+                                              lam0=ocfg.lm_lambda0, trim_factor=3.0)
+    cpu_s = time.perf_counter() - t0
+    c_gpu, c_cpu = float(pending["info"]["cost"]), float(info_cpu["cost"])
+    c0_gpu, c0_cpu = float(pending["info"]["cost0"]), float(info_cpu["cost0"])
+    d_pose = float((pending["T"].cpu() - T_cpu).abs().max())
+    log(f"first heavy BA ({pending['problem'].T_w2c.shape[0]}x{pending['problem'].points.shape[0]}, "
+        f"{int(pending['problem'].obs_valid.sum())} observations), card vs CPU ({cpu_s:.2f} s): cost0 {c0_gpu:.6g} "
+        f"vs {c0_cpu:.6g}, cost {c_gpu:.6g} vs {c_cpu:.6g}, poses max abs diff {d_pose:.2e}")
+    if abs(c_gpu - c_cpu) > BA_COST_RTOL * abs(c_cpu) or abs(c0_gpu - c0_cpu) > BA_COST_RTOL * abs(c0_cpu):
+        raise AssertionError(f"BA cost on the card {c0_gpu} -> {c_gpu} vs CPU {c0_cpu} -> {c_cpu}")
+    if d_pose > BA_POSE_ATOL:
+        raise AssertionError(f"BA poses on the card differ from the CPU's by {d_pose}")
+    return launches, report
+
+
 def run_pose_graphs(torch, np, dev):
     """bench_pose_graph's SE(3) problem and a drifted Sim(3) loop, both at
     PG_NODES: the cost must fall; ms per solve after one warm-up."""
@@ -520,25 +814,10 @@ def main() -> int:
 
     # Host synchronisations inside one step, by source line of the port
     # (informational: linalg.eigh/svd read their error status back).
-    sync_at = collections.Counter()
-
-    def note_sync(message, *args, **kwargs):
-        frames_ = [f for f in traceback.extract_stack() if "visual_slam_tpu_torch" in f.filename]
-        if frames_ and "synchroniz" in str(message).lower():
-            sync_at[f"{frames_[-1].filename.split('visual_slam_tpu_torch/')[-1]}:{frames_[-1].lineno}"] += 1
-
     s = make_state()
     torch.cuda.synchronize()
-    shown = warnings.showwarning
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = note_sync
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            step(s, imgs[0])
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-            warnings.showwarning = shown
+    with count_syncs(torch) as sync_at:
+        step(s, imgs[0])
     log(f"host syncs inside one step: {sum(sync_at.values())} {dict(sync_at)}")
 
     # Throughput: 16 frames per rep, single steps and chunks in turns.
@@ -581,12 +860,12 @@ def main() -> int:
     # torch.func and the solver), then the loop path, counted on its own.
     run_pose_graphs(torch, np, dev)
     loop_launches = run_loop_path(torch, np, step, dev, counters)
-    for row, a, b in zip(rows, launches, loop_launches):
-        row["launches"] = a + b
-    log("launches per kernel (tracking + loop path): "
-        f"{[(r['name'], a, b) for r, a, b in zip(rows, launches, loop_launches)]}; "
-        "K5 has no caller on either path")
-    log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    fp_launches, _ = run_full_pipeline(torch, np, dev, counters)
+    for row, a, b, c in zip(rows, launches, loop_launches, fp_launches):
+        row["launches"] = a + b + c
+    log("launches per kernel (tracking, loop path, full pipeline): "
+        f"{[(r['name'], a, b, c) for r, a, b, c in zip(rows, launches, loop_launches, fp_launches)]}; "
+        "K5 has no caller on any path")
 
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -8,8 +8,17 @@ ROOT = Path(__file__).resolve().parents[1]
 MODULES = [
     "visual_slam_tpu_torch",
     "visual_slam_tpu_torch._build",
+    "visual_slam_tpu_torch.backend",
+    "visual_slam_tpu_torch.backend.ba",
+    "visual_slam_tpu_torch.backend.optimizer",
     "visual_slam_tpu_torch.camera",
     "visual_slam_tpu_torch.config",
+    "visual_slam_tpu_torch.frontend",
+    "visual_slam_tpu_torch.frontend.feature_manager",
+    "visual_slam_tpu_torch.frontend.features",
+    "visual_slam_tpu_torch.frontend.matcher",
+    "visual_slam_tpu_torch.frontend.tracker",
+    "visual_slam_tpu_torch.initializer",
     "visual_slam_tpu_torch.interop",
     "visual_slam_tpu_torch.loop_closing",
     "visual_slam_tpu_torch.loop_closing.loop_closing",
@@ -22,9 +31,15 @@ MODULES = [
     "visual_slam_tpu_torch.map.map_point",
     "visual_slam_tpu_torch.map.observation",
     "visual_slam_tpu_torch.map.pose",
+    "visual_slam_tpu_torch.models",
+    "visual_slam_tpu_torch.models.compiled_slam",
     "visual_slam_tpu_torch.pipeline",
     "visual_slam_tpu_torch.sensor_type",
+    "visual_slam_tpu_torch.state",
+    "visual_slam_tpu_torch.tracking",
+    "visual_slam_tpu_torch.utils.logging",
     "visual_slam_tpu_torch.utils.metrics",
+    "visual_slam_tpu_torch.utils.tree",
     "visual_slam_tpu_torch.ops.detector",
     "visual_slam_tpu_torch.ops.epipolar",
     "visual_slam_tpu_torch.ops.fast",
@@ -37,6 +52,7 @@ MODULES = [
     "visual_slam_tpu_torch.ops.patch_kernels",
     "visual_slam_tpu_torch.ops.pnp",
     "visual_slam_tpu_torch.ops.projection",
+    "visual_slam_tpu_torch.ops.triangulation",
     "visual_slam_tpu_torch.ops.pyramid",
 ]
 

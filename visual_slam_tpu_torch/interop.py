@@ -12,19 +12,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .backend.ba import BAProblem
 from .map import KeyFrame, Map, MapPoint
 from .map.pose import Pose
 from .ops.detector import Features
-from .pipeline import TrackState
+from .pipeline import PromoteRecord, TrackOutput, TrackState
+from .utils.tree import as_numpy as _np
 
 
-def _np(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+def _t(x, dtype, device):
+    return None if x is None else torch.tensor(_np(x), dtype=dtype).to(device)
 
 
 def desc_to_int32(desc) -> np.ndarray:
-    """uint32 descriptor words (or the port's int32 words) -> int32 bits."""
-    return np.ascontiguousarray(_np(desc)).view(np.int32)
+    """uint32 descriptor words (or the port's int32 words) -> int32 bits, a
+    writable copy."""
+    return np.array(_np(desc)).view(np.int32)
 
 
 def desc_to_uint32(desc: torch.Tensor) -> np.ndarray:
@@ -36,17 +39,14 @@ def features_from_numpy(feats, device=None) -> Features:
     """The port's ``Features`` on ``device`` from an object with the JAX
     ``Features`` fields."""
 
-    def t(x, dtype):
-        return torch.tensor(_np(x), dtype=dtype).to(device)
-
     return Features(
-        xy=t(feats.xy, torch.float32),
-        response=t(feats.response, torch.float32),
-        angle=t(feats.angle, torch.float32),
-        octave=t(feats.octave, torch.int32),
-        size=t(feats.size, torch.float32),
+        xy=_t(feats.xy, torch.float32, device),
+        response=_t(feats.response, torch.float32, device),
+        angle=_t(feats.angle, torch.float32, device),
+        octave=_t(feats.octave, torch.int32, device),
+        size=_t(feats.size, torch.float32, device),
         desc=torch.from_numpy(desc_to_int32(feats.desc)).to(device),
-        valid=t(feats.valid, torch.bool),
+        valid=_t(feats.valid, torch.bool, device),
     )
 
 
@@ -55,21 +55,60 @@ def track_state_from_numpy(state, device=None, seed: int = 0) -> TrackState:
     ``TrackState``. The JAX PRNG key does not carry over: RANSAC draws come
     from a new generator seeded with ``seed``."""
 
-    def t(x, dtype):
-        return None if x is None else torch.tensor(np.asarray(x), dtype=dtype).to(device)
-
     device = torch.device(device) if device is not None else torch.device("cpu")
     return TrackState(
         ref_feats=features_from_numpy(state.ref_feats, device),
-        ref_landmarks=t(state.ref_landmarks, torch.float32),
-        ref_has_landmark=t(state.ref_has_landmark, torch.bool),
-        T_w2c=t(state.T_w2c, torch.float32),
-        T_rel=t(state.T_rel, torch.float32),
+        ref_landmarks=_t(state.ref_landmarks, torch.float32, device),
+        ref_has_landmark=_t(state.ref_has_landmark, torch.bool, device),
+        T_w2c=_t(state.T_w2c, torch.float32, device),
+        T_rel=_t(state.T_rel, torch.float32, device),
         gen=torch.Generator(device=device).manual_seed(seed),
-        lm_pos=t(state.lm_pos, torch.float32),
+        lm_pos=_t(state.lm_pos, torch.float32, device),
         lm_desc=None if state.lm_desc is None else torch.from_numpy(desc_to_int32(state.lm_desc)).to(device),
-        lm_valid=t(state.lm_valid, torch.bool),
+        lm_valid=_t(state.lm_valid, torch.bool, device),
     )
+
+
+def track_output_from_numpy(out, device=None) -> TrackOutput:
+    """The port's ``TrackOutput`` from an object with the JAX fields; the
+    stereo depth fields, ``None`` on a mono step, become zeros. Leading
+    (chunk) axes are kept."""
+
+    feats = features_from_numpy(out.features, device)
+    shape = tuple(feats.valid.shape)
+    kp_z = getattr(out, "kp_z", None)
+    kp_z_valid = getattr(out, "kp_z_valid", None)
+    return TrackOutput(
+        T_w2c=_t(out.T_w2c, torch.float32, device),
+        n_inliers=_t(out.n_inliers, torch.int64, device),
+        n_matches=_t(out.n_matches, torch.int64, device),
+        features=feats,
+        match_train_idx=_t(out.match_train_idx, torch.int64, device),
+        match_valid=_t(out.match_valid, torch.bool, device),
+        pnp_inliers=_t(out.pnp_inliers, torch.bool, device),
+        guided_idx=_t(out.guided_idx, torch.int64, device),
+        guided_valid=_t(out.guided_valid, torch.bool, device),
+        kp_z=torch.zeros(shape, device=device) if kp_z is None else _t(kp_z, torch.float32, device),
+        kp_z_valid=(torch.zeros(shape, dtype=torch.bool, device=device) if kp_z_valid is None
+                    else _t(kp_z_valid, torch.bool, device)),
+    )
+
+
+def promote_record_from_numpy(rec, device=None) -> PromoteRecord:
+    """The port's ``PromoteRecord`` from an object with the JAX fields."""
+
+    return PromoteRecord(promoted=_t(rec.promoted, torch.bool, device),
+                         ref_pos=_t(rec.ref_pos, torch.float32, device),
+                         ref_has=_t(rec.ref_has, torch.bool, device), ref_tri=_t(rec.ref_tri, torch.bool, device))
+
+
+def ba_problem_from_numpy(problem, device=None) -> BAProblem:
+    """The port's dense ``BAProblem`` from an object with the JAX fields."""
+
+    return BAProblem(T_w2c=_t(problem.T_w2c, torch.float32, device), points=_t(problem.points, torch.float32, device),
+                     uv=_t(problem.uv, torch.float32, device), obs_valid=_t(problem.obs_valid, torch.bool, device),
+                     pose_valid=_t(problem.pose_valid, torch.bool, device),
+                     pose_fixed=_t(problem.pose_fixed, torch.bool, device))
 
 
 def keyframe_from_numpy(features, T_w2c, keyframe_id: int, frame_id: int | None = None,
@@ -88,8 +127,8 @@ def map_from_numpy(keyframes, points, device=None) -> Map:
     ``Map`` (``map_from_numpy(m.get_keyframes(), m.get_map_points())``), or
     as any objects with their fields: keyframes with ``keyframe_id``, ``id``,
     ``timestamp``, ``T_w2c``, ``features`` and ``map_points`` ({(cam, kp):
-    point}); points with ``id``, ``position``, ``is_bad`` and
-    ``observations.items()`` ((kf_id, cam, kp) triples). Ids, insertion
+    point}); points with ``id``, ``position``, ``is_bad``, optionally
+    ``descriptor``, and ``observations.items()`` ((kf_id, cam, kp) triples). Ids, insertion
     order, observations and keyframe links are kept, so host bookkeeping
     iterates in the same order in both packages."""
     m = Map()
@@ -98,7 +137,8 @@ def map_from_numpy(keyframes, points, device=None) -> Map:
                                            timestamp=src.timestamp, device=device))
     by_id = {}
     for src in points:
-        mp = MapPoint(_np(src.position))
+        desc = getattr(src, "descriptor", None)
+        mp = MapPoint(_np(src.position), descriptor=None if desc is None else desc_to_int32(desc))
         mp.id = int(src.id)
         mp.is_bad = bool(src.is_bad)
         for kf_id, cam_id, kp_idx in src.observations.items():

@@ -160,6 +160,13 @@ class Frame(FrameBase):
             self._np_cache[(key, cam_id)] = c
         return c
 
+    def cache_host_features(self, feats, cam_id: int = 0) -> None:
+        """Install host copies (numpy, fetched with the rest of a chunk's
+        output) as the numpy views of camera ``cam_id``'s feature block, so
+        reading them costs no device->host copy of its own."""
+        for key in ("xy", "desc", "valid"):
+            self._np_cache[(key, cam_id)] = np.asarray(getattr(feats, key))
+
     def keypoints(self, cam_id: int = 0) -> np.ndarray:
         """(K, 2) pixel coords (padded slots included; see valid mask)."""
         return self._np_view("xy", cam_id, self.features[cam_id].xy)

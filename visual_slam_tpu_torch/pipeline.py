@@ -7,6 +7,12 @@ Gauss-Newton fallback from the constant-velocity prediction -> motion
 model update. The state lives on the device and the step never reads a
 value back to the host: every decision is a ``torch.where``.
 
+``make_track_chunk`` runs the step over a chunk of frames with a fixed
+reference; ``make_track_chunk_promote`` also promotes keyframes inside the
+chunk on the device (inheriting and triangulating the new reference
+block), and ``make_compact_chunk`` gathers what the host needs at the
+chunk boundary into one small structure.
+
 Stereo and RGB-D steps are not ported yet.
 """
 from __future__ import annotations
@@ -25,6 +31,8 @@ from .ops.lie import make_T, rotation_angle, se3_inverse
 from .ops.matching import match_descriptors
 from .ops.pnp import _reproj_err2, ransac_pnp, refine_pose_gn
 from .ops.projection import normalize_points
+from .ops.triangulation import triangulate_gated
+from .utils.tree import to_device
 
 
 class TrackState(NamedTuple):
@@ -208,6 +216,215 @@ def make_track_chunk(track_step: TrackStep):
         return state, _stack(outs)
 
     return chunk
+
+
+class PromoteRecord(NamedTuple):
+    """Per-frame record of an in-chunk keyframe promotion. ``ref_pos`` and
+    ``ref_has`` are the new reference block per current-frame keypoint slot
+    (zeros where the frame did not promote); ``ref_tri`` marks the slots
+    the device triangulated fresh, the only ones that may mint new
+    landmarks on the host."""
+
+    promoted: torch.Tensor  # () bool
+    ref_pos: torch.Tensor  # (K, 3)
+    ref_has: torch.Tensor  # (K,) bool
+    ref_tri: torch.Tensor  # (K,) bool, subset of ref_has
+
+
+def promote_block(s: TrackState, out: TrackOutput, T_ref: torch.Tensor, Kinv: torch.Tensor, min_depth,
+                  max_depth, min_parallax_rad, reproj_thresh_n):
+    """The new reference block from the current frame's associations:
+    landmarks inherited through the guided arena match (which wins) or the
+    reference-block match, PnP inliers only, and fresh ones triangulated
+    against the old reference (``triangulate_gated``) for matched keypoints
+    without a landmark. Returns (state with the new block, ref_pos (K, 3),
+    ref_has (K,), ref_tri (K,))."""
+    ti = out.match_train_idx
+    inl = out.pnp_inliers
+    g_ok = out.guided_valid & inl
+    has_ref = s.ref_has_landmark[ti]
+    inherit_ref = out.match_valid & inl & has_ref & ~g_ok
+    pos = s.ref_landmarks[ti]
+    if s.lm_pos is not None:
+        pos = torch.where(g_ok[:, None], s.lm_pos[out.guided_idx], pos)
+    has = g_ok | inherit_ref
+    tri_cand = out.match_valid & ~has_ref & ~has
+    pts_tri, tri_good = triangulate_gated(Kinv, T_ref, out.T_w2c, s.ref_feats.xy[ti], out.features.xy,
+                                          min_depth, max_depth, min_parallax_rad, reproj_thresh_n)
+    tri_ok = tri_cand & tri_good
+    pos = torch.where(tri_ok[:, None], pts_tri, pos)
+    has = has | tri_ok
+    return s._replace(ref_feats=out.features, ref_landmarks=pos, ref_has_landmark=has), pos, has, tri_ok
+
+
+class TrackChunkPromote:
+    """Chunked tracking with in-chunk keyframe promotion:
+    ``chunk(state, fsr, T_ref, imgs (C, H, W), n_valid=None) -> (state,
+    fsr, T_ref, outs, recs)`` with every leaf of ``outs`` (TrackOutput) and
+    ``recs`` (PromoteRecord) stacked along a leading C axis. ``fsr`` counts
+    frames since the reference and ``T_ref`` is the reference pose; the
+    host seeds both at every boundary.
+
+    Every frame evaluates the keyframe gates (interval, match decay,
+    rotation, translation) on the device and swaps the reference to itself
+    when they fire and it tracked at least ``min_inliers``. The JAX version
+    branches with ``lax.cond``; here ``promote_block`` runs every frame and
+    ``torch.where`` selects, so no frame reads a value back to the host.
+    Frames at or past ``n_valid`` (a flush pads the chunk with copies of
+    its last frame) never promote."""
+
+    def __init__(self, track_step: TrackStep, K, min_inliers: int = 15, keyframe_interval: int = 4,
+                 kf_min_matches: int = 60, kf_min_rotation_deg: float = 10.0, kf_min_translation: float = 1.0,
+                 min_depth: float = 0.1, max_depth: float = 1e6, min_parallax_deg: float = 0.5,
+                 pnp_threshold_px: float = 3.0):
+        self.step = track_step
+        self.min_inliers = min_inliers
+        self.keyframe_interval = keyframe_interval
+        self.kf_min_matches = kf_min_matches
+        self.kf_min_translation = kf_min_translation
+        K = np.asarray(K, np.float32)
+        dev = track_step.K.device
+
+        def f32(x):
+            return torch.tensor(x, dtype=torch.float32, device=dev)
+
+        self.Kinv = torch.linalg.inv(torch.from_numpy(K).to(dev))
+        self.rot_thresh = f32(np.deg2rad(kf_min_rotation_deg))
+        self.gates = (f32(min_depth), f32(max_depth), f32(np.deg2rad(min_parallax_deg)),
+                      f32(pnp_threshold_px / K[0, 0]))
+
+    def __call__(self, state: TrackState, fsr, T_ref, imgs: torch.Tensor, n_valid: int | None = None):
+        dev = state.T_w2c.device
+        n_valid = imgs.shape[0] if n_valid is None else int(n_valid)
+        fsr = torch.full((), int(fsr), dtype=torch.int32, device=dev) if not torch.is_tensor(fsr) else fsr
+        T_ref = T_ref if torch.is_tensor(T_ref) else to_device(np.asarray(T_ref, np.float32), dev)
+        outs, recs = [], []
+        for i, img in enumerate(imgs):
+            state, out = self.step(state, img)
+            fsr = fsr + 1
+            if i >= n_valid:
+                no = torch.zeros_like(out.pnp_inliers)
+                outs.append(out)
+                recs.append(PromoteRecord(no[0], torch.zeros_like(state.ref_landmarks), no, no))
+                continue
+            R_cur, t_cur = out.T_w2c[:3, :3], out.T_w2c[:3, 3]
+            R_ref, t_ref = T_ref[:3, :3], T_ref[:3, 3]
+            gap = torch.linalg.vector_norm(R_ref.T @ t_ref - R_cur.T @ t_cur)  # |C_cur - C_ref|
+            trigger = (
+                (fsr > self.keyframe_interval)
+                | (out.n_inliers < self.kf_min_matches)
+                | (rotation_angle(R_cur @ R_ref.T) > self.rot_thresh)
+                | (gap > self.kf_min_translation)
+            )
+            promote = (out.n_inliers >= self.min_inliers) & trigger
+            with record_function("promote_block"):
+                s2, pos, has, tri = promote_block(state, out, T_ref, self.Kinv, *self.gates)
+            state = state._replace(
+                ref_feats=Features(*[torch.where(promote, a, b) for a, b in zip(s2.ref_feats, state.ref_feats)]),
+                ref_landmarks=torch.where(promote, s2.ref_landmarks, state.ref_landmarks),
+                ref_has_landmark=torch.where(promote, s2.ref_has_landmark, state.ref_has_landmark),
+            )
+            fsr = torch.where(promote, 0, fsr)
+            T_ref = torch.where(promote, out.T_w2c, T_ref)
+            outs.append(out)
+            recs.append(PromoteRecord(promote, torch.where(promote, pos, 0.0), has & promote, tri & promote))
+        return state, fsr, T_ref, _stack(outs), _stack(recs)
+
+
+def make_track_chunk_promote(track_step: TrackStep, K, stereo: bool = False, **kwargs) -> TrackChunkPromote:
+    """Build the self-promoting chunk; keyword arguments as ``TrackChunkPromote``."""
+    if stereo:
+        raise NotImplementedError("stereo in-chunk promotion is not ported yet")
+    return TrackChunkPromote(track_step, K, **kwargs)
+
+
+class CompactChunk(NamedTuple):
+    """What the host reads at a self-promoting chunk's boundary: the
+    decision scalars of every frame and the per-keypoint blocks of the
+    promoted frames only, gathered on the device into P slots (slot s holds
+    the s-th promoted frame)."""
+
+    T_w2c: torch.Tensor  # (C, 4, 4)
+    n_inliers: torch.Tensor  # (C,)
+    n_matches: torch.Tensor  # (C,)
+    promoted: torch.Tensor  # (C,)
+    n_promoted: torch.Tensor  # () int32; the host checks overflow (> P)
+    slot_frame: torch.Tensor  # (P,) int32 frame index within the chunk, C if empty
+    feats: Features  # (P, K, ...)
+    match_train_idx: torch.Tensor  # (P, K)
+    match_valid: torch.Tensor
+    pnp_inliers: torch.Tensor
+    guided_idx: torch.Tensor
+    guided_valid: torch.Tensor
+    ref_pos: torch.Tensor  # (P, K, 3)
+    ref_has: torch.Tensor
+    ref_tri: torch.Tensor
+    sig: torch.Tensor  # (P, V) place signatures, or (P, 1) zeros without loop closing
+
+
+def correction_similarity(T_old, T_new, s: float):
+    """The world-frame similarity ``x_new = s R_u x + t_u`` implied by one
+    keyframe's pose update T_old -> T_new (both w2c) and the mono-gauge
+    scale ``s``: R_u = R_new^T R_old, t_u = R_new^T (s t_old - t_new).
+    Host numpy."""
+    T_old = np.asarray(T_old, np.float64)
+    T_new = np.asarray(T_new, np.float64)
+    R_u = T_new[:3, :3].T @ T_old[:3, :3]
+    t_u = T_new[:3, :3].T @ (s * T_old[:3, 3] - T_new[:3, 3])
+    return R_u, t_u
+
+
+def apply_correction(state: TrackState, T_ref, R_u, t_u, s):
+    """Re-anchor a device tracking state into a corrected world frame:
+    landmarks move by x' = s R_u x + t_u, w2c poses by R' = R R_u^T,
+    t' = s t - R' t_u (reprojections unchanged), and the motion model's
+    translation scales by s. Returns (state, T_ref)."""
+    R_u = torch.as_tensor(R_u, dtype=torch.float32).to(state.T_w2c.device)
+    t_u = torch.as_tensor(t_u, dtype=torch.float32).to(state.T_w2c.device)
+    s = torch.as_tensor(s, dtype=torch.float32).to(state.T_w2c.device)
+
+    def fix_pose(T):
+        R = T[:3, :3] @ R_u.T
+        return make_T(R, s * T[:3, 3] - R @ t_u)
+
+    def fix_pts(x):
+        return x @ (s * R_u).T + t_u
+
+    T_rel = make_T(state.T_rel[:3, :3], state.T_rel[:3, 3] * s)
+    new = state._replace(T_w2c=fix_pose(state.T_w2c), T_rel=T_rel, ref_landmarks=fix_pts(state.ref_landmarks))
+    if state.lm_pos is not None:
+        new = new._replace(lm_pos=fix_pts(state.lm_pos))
+    return new, fix_pose(T_ref)
+
+
+def make_compact_chunk(P: int, with_sig: bool = False):
+    """``compact(outs, recs) -> CompactChunk`` on the device. Without
+    ``with_sig`` (loop closing off) the signatures are a (P, 1) zero
+    placeholder."""
+    from .loop_closing.signature import keyframe_signature
+
+    def compact(outs: TrackOutput, recs: PromoteRecord) -> CompactChunk:
+        C = outs.T_w2c.shape[0]
+        dev = outs.T_w2c.device
+        order = torch.where(recs.promoted, torch.arange(C, device=dev), C)
+        slots = torch.sort(order).values[:P]  # ascending promoted frame indices
+        idx = torch.clamp(slots, max=C - 1)
+
+        def g(a):
+            return a[idx]
+
+        feats = Features(*[g(a) for a in outs.features])
+        return CompactChunk(
+            T_w2c=outs.T_w2c, n_inliers=outs.n_inliers, n_matches=outs.n_matches, promoted=recs.promoted,
+            n_promoted=recs.promoted.to(torch.int32).sum(), slot_frame=slots.to(torch.int32), feats=feats,
+            match_train_idx=g(outs.match_train_idx), match_valid=g(outs.match_valid),
+            pnp_inliers=g(outs.pnp_inliers), guided_idx=g(outs.guided_idx), guided_valid=g(outs.guided_valid),
+            ref_pos=g(recs.ref_pos), ref_has=g(recs.ref_has), ref_tri=g(recs.ref_tri),
+            sig=(keyframe_signature(feats.desc, feats.valid) if with_sig
+                 else torch.zeros((idx.shape[0], 1), dtype=torch.float32, device=dev)),
+        )
+
+    return compact
 
 
 def init_track_state(
