@@ -135,11 +135,11 @@ def test_unported_layouts_raise(opt, value, window):
     setattr(cfg.optimization, opt, value)
     camera = SimpleNamespace(K=np.diag([500.0, 500.0, 1.0]))
     with pytest.raises(NotImplementedError):
-        LMOptimizer(cfg, camera).solve_start([], [], w_bucket=window)
+        LMOptimizer(cfg, camera, device="cpu").solve_start([], [], w_bucket=window)
 
 
 def test_auto_layouts_resolve_to_dense():
     cfg = Config()
     cfg.optimization.sparse_obs = "auto"
     cfg.optimization.lm_minor = "auto"
-    LMOptimizer(cfg, SimpleNamespace(K=np.eye(3)))._check_layout(8)  # no raise
+    LMOptimizer(cfg, SimpleNamespace(K=np.eye(3)), device="cpu")._check_layout(8)  # no raise

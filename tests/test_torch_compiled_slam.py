@@ -69,7 +69,7 @@ def frame_run():
     rng = np.random.default_rng(42)
     frames, Ts_gt, K, _ = render_sequence(rng, n_frames=14, step=0.3)
     with _threads(2):
-        slam = CompiledSLAM(_camera(PinholeCamera, frames, K), small_config())
+        slam = CompiledSLAM(_camera(PinholeCamera, frames, K), small_config(), device="cpu")
         infos = [slam.track([img], timestamp=i * 0.1) for i, img in enumerate(frames)]
         slam.shutdown()
     return slam, infos, Ts_gt
@@ -128,7 +128,7 @@ def _port_from_map(m, cfg, camera, T_boot, t_boot):
     _bump(tmap.KeyFrame, "_kf_ids", max(k.keyframe_id for k in m.get_keyframes()) + 1)
     _bump(tmap.MapPoint, "_ids", max(p.id for p in m.get_map_points()) + 1)
     _bump(tmap.frame.FrameBase, "_ids", max(k.id for k in m.get_keyframes()) + 1)
-    slam = CompiledSLAM(camera, cfg)
+    slam = CompiledSLAM(camera, cfg, device="cpu")
     slam.map = slam._initializer.map = m
     slam.state = State.OK
     kf = m.get_last_keyframe()
@@ -291,7 +291,7 @@ def test_adopt_device_keyframe_drops_stale_inherits():
     from visual_slam_tpu_torch.pipeline import PromoteRecord, TrackOutput
 
     K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]])
-    slam = CompiledSLAM(PinholeCamera(width=320, height=240, K=K), small_config())
+    slam = CompiledSLAM(PinholeCamera(width=320, height=240, K=K), small_config(), device="cpu")
     nk = 4
 
     def feats(seed):
@@ -346,7 +346,7 @@ def test_unported_switches_raise(section, key, value):
     cfg = small_config()
     setattr(getattr(cfg, section), key, value)
     with pytest.raises(NotImplementedError):
-        CompiledSLAM(PinholeCamera(width=320, height=240, K=np.diag([300.0, 300.0, 1.0])), cfg)
+        CompiledSLAM(PinholeCamera(width=320, height=240, K=np.diag([300.0, 300.0, 1.0])), cfg, device="cpu")
 
 
 def test_async_boundary_and_serialization_raise():
@@ -356,8 +356,8 @@ def test_async_boundary_and_serialization_raise():
     cfg.tracking.async_boundary = True
     cam = PinholeCamera(width=320, height=240, K=np.diag([300.0, 300.0, 1.0]))
     with pytest.raises(NotImplementedError):
-        CompiledSLAM(cam, cfg)
-    slam = CompiledSLAM(cam, small_config())
+        CompiledSLAM(cam, cfg, device="cpu")
+    slam = CompiledSLAM(cam, small_config(), device="cpu")
     with pytest.raises(NotImplementedError):
         slam.save("unused")
     with pytest.raises(NotImplementedError):

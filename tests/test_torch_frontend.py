@@ -41,7 +41,7 @@ def pair():
 def test_matches_before_ransac_equal_jax(pair):
     f1, f0 = pair
     ref = JFeatureTracker(_cfg(JConfig, use_ransac_fund_matrix=False).feature).match(f1, f0)
-    got = FeatureTracker(_cfg(Config, use_ransac_fund_matrix=False).feature).match(
+    got = FeatureTracker(_cfg(Config, use_ransac_fund_matrix=False).feature, device="cpu").match(
         features_from_numpy(f1), features_from_numpy(f0))
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
     v = np.asarray(ref.valid)
@@ -59,7 +59,7 @@ def test_ransac_filter_with_injected_draws(pair, seed):
     _, sub = jax.random.split(jax.random.PRNGKey(seed))
     idx = jepi._sample_minimal_sets(sub, pre.valid, jt.ransac_hypotheses, 8)
     ref = jt.match(f1, f0)
-    got = FeatureTracker(_cfg(Config).feature).match(features_from_numpy(f1), features_from_numpy(f0),
+    got = FeatureTracker(_cfg(Config).feature, device="cpu").match(features_from_numpy(f1), features_from_numpy(f0),
                                                      sample_idx=torch.from_numpy(np.array(idx)))
     assert np.sum(got.valid.numpy() != np.asarray(ref.valid)) <= 2
     assert abs(got.n_matches - ref.n_matches) <= 2
@@ -72,5 +72,5 @@ def test_unported_families_raise():
     for name in ("l2", "flann"):
         with pytest.raises(NotImplementedError):
             fm.matcher_factory(name)
-    assert isinstance(fm.feature_factory("orb", num_features=64), fm.FastOrbFeature2D)
+    assert isinstance(fm.feature_factory("orb", num_features=64, device="cpu"), fm.FastOrbFeature2D)
     assert isinstance(fm.matcher_factory("bf_hamming"), fm.BFMatcherHamming)

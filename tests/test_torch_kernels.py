@@ -15,7 +15,8 @@ from visual_slam_tpu_torch.ops import orb as torb
 from visual_slam_tpu_torch.ops.patch_kernels import (
     extract_patches32,
     extract_patches32_ref,
-    patches_and_moments,
+    patches_and_moments_levels,
+    patches_and_moments_levels_ref,
     patches_and_moments_ref,
 )
 
@@ -98,27 +99,81 @@ def test_patches_clamp_like_dynamic_slice(jnp):
     np.testing.assert_array_equal(torb.extract_patches(torch.from_numpy(img), torch.from_numpy(yx)).numpy(), ref)
 
 
+def _pyramid_fixture(rng, sizes=((120, 160), (100, 133), (83, 111), (69, 92)), counts=(37, 0, 21, 13)):
+    """Levels of different sizes with their keypoints: one level without
+    any, counts that are not a multiple of the kernel's 4 keypoints a block,
+    and centres on the corners, at -1 and at H / W (the grid's padding
+    slots past the image)."""
+    raws, blurs, yxs = [], [], []
+    for (H, W), k in zip(sizes, counts):
+        img, blur, yx = _image_and_keypoints(rng, H=H, W=W, K=max(k, 6))
+        yx[4:6] = [[-1, W], [H, -1]]
+        raws.append(img)
+        blurs.append(blur)
+        yxs.append(yx[:k])
+    return raws, blurs, yxs
+
+
+def test_patches_moments_levels_ref_matches_jax(jnp):
+    """The multi-level plain version is the per-level calls concatenated
+    level-major, and equals the JAX package's XLA path per level (patches
+    exact, moments within 1e-5 of sum |w * p|); on CPU tensors the wrapper
+    takes it and launches nothing."""
+    from visual_slam_tpu.ops import orb as jorb
+
+    rng = np.random.default_rng(28)
+    raws, blurs, yxs = _pyramid_fixture(rng)
+    t = lambda xs: [torch.from_numpy(x) for x in xs]  # noqa: E731
+    w = torch.from_numpy(torb.MOMENT_W_NP)
+    mom, pat = patches_and_moments_levels_ref(t(raws), t(blurs), t(yxs), w)
+    assert mom.shape == (71, 2) and pat.shape == (71, 31, 31)
+    per = [patches_and_moments_ref(r, b, yx, w) for r, b, yx in zip(t(raws), t(blurs), t(yxs))]
+    assert torch.equal(mom, torch.cat([m for m, _ in per])) and torch.equal(pat, torch.cat([p for _, p in per]))
+    k0 = 0
+    for raw, blur, yx in zip(raws, blurs, yxs):
+        k = len(yx)
+        if k:
+            raw_x = np.asarray(jorb.extract_patches(jnp.asarray(raw), jnp.asarray(yx)))
+            pat_x = np.asarray(jorb.extract_patches(jnp.asarray(blur), jnp.asarray(yx)))
+            mom_x = raw_x.reshape(k, -1) @ np.asarray(jorb._MOMENT_W)
+            np.testing.assert_array_equal(pat[k0:k0 + k].numpy(), pat_x)
+            assert (np.abs(mom[k0:k0 + k].numpy() - mom_x) <= 1e-5 * _moment_scale(raw_x)).all()
+        k0 += k
+    n = patches_and_moments_levels.launches
+    got = patches_and_moments_levels(t(raws), t(blurs), t(yxs), w)
+    assert torch.equal(got[0], mom) and torch.equal(got[1], pat) and patches_and_moments_levels.launches == n
+
+
 @pytest.mark.cuda
 def test_patches_moments_kernel_matches_ref(cuda):
+    """All four levels of a main-path frame size in one launch (643, 537,
+    447 and 373 keypoints, as at 2000 features), then the edge fixture: a
+    level without keypoints, counts off the block's multiple, centres at -1
+    and H / W. Patches exact, moments within 1e-5 of sum |w * p|."""
     rng = np.random.default_rng(13)
-    img, blur, yx = _image_and_keypoints(rng, H=376, W=1240, K=643)
-    args = [torch.from_numpy(a).to(cuda) for a in (img, blur, yx)]
     w = torch.from_numpy(torb.MOMENT_W_NP).to(cuda)
-    before = patches_and_moments.launches
-    mom, pat = patches_and_moments(*args, w)
-    torch.cuda.synchronize()
-    assert patches_and_moments.launches == before + 1
-    mom_r, pat_r = patches_and_moments_ref(*args, w)
-    assert torch.equal(pat, pat_r)
-    tol = 1e-5 * _moment_scale(torb.extract_patches(args[0], args[2]).cpu().numpy())
-    assert (np.abs((mom - mom_r).cpu().numpy()) <= tol).all()
+    big = [_image_and_keypoints(rng, H=h, W=wd, K=k)
+           for (h, wd), k in zip(((376, 1240), (313, 1033), (261, 861), (218, 718)), (643, 537, 447, 373))]
+    for raws, blurs, yxs in (list(zip(*big)), _pyramid_fixture(rng)):
+        args = [[torch.from_numpy(a).to(cuda) for a in xs] for xs in (raws, blurs, yxs)]
+        before = patches_and_moments_levels.launches
+        mom, pat = patches_and_moments_levels(*args, w)
+        torch.cuda.synchronize()
+        assert patches_and_moments_levels.launches == before + 1
+        mom_r, pat_r = patches_and_moments_levels_ref(*args, w)
+        assert torch.equal(pat, pat_r)
+        raw_p = torch.cat([torb.extract_patches(r, yx) for r, yx in zip(args[0], args[2])])
+        tol = 1e-5 * _moment_scale(raw_p.cpu().numpy())
+        assert (np.abs((mom - mom_r).cpu().numpy()) <= tol).all()
 
 
 @pytest.mark.cuda
 def test_patches_moments_kernel_rejects_bad_input(cuda):
     img = torch.zeros((20, 30), device=cuda)
     with pytest.raises(ValueError):
-        patches_and_moments(img, img, torch.zeros((4, 2), dtype=torch.int64, device=cuda), img)
+        patches_and_moments_levels([img], [img], [torch.zeros((4, 2), dtype=torch.int64, device=cuda)], img)
+    with pytest.raises(ValueError):
+        patches_and_moments_levels([img], [img[:10]], [torch.zeros((4, 2), dtype=torch.int32, device=cuda)], img)
 
 
 # --- K2: Hamming top-2 -------------------------------------------------------
@@ -180,6 +235,61 @@ def test_hamming_top2_kernel_matches_ref(cuda):
     assert mk.hamming_top2.launches == before + 1
     for a, b in zip(out, mk.hamming_top2_ref(*args)):
         assert torch.equal(a, b)
+
+
+def _tile_fixture(rng, k1, k2):
+    """Random descriptors with ties on both sides of the kernel's 64-wide
+    tile edges: train columns 63 and 64 (and 10 and 70) share a descriptor,
+    so do query rows 63 and 64 (and 5 and 69), and some queries copy train
+    columns next to them; about a tenth of rows and columns invalid."""
+    d1, d2 = _packed(rng, k1), _packed(rng, k2)
+    for a, b in ((63, 64), (10, 70)):
+        if b < k2:
+            d2[b] = d2[a]
+    for a, b in ((63, 64), (5, 69)):
+        if b < k1:
+            d1[b] = d1[a]
+    n = min(k1, k2)
+    d1[: n // 2] = d2[: n // 2] ^ (rng.random((n // 2, 8)) < 0.05).astype(np.uint32)
+    if k1 > 64 and k2 > 70:
+        d1[20] = d2[70]  # a query whose exact match has an equal twin in another tile (10)
+    return d1, d2, rng.random(k1) > 0.1, rng.random(k2) > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k1,k2", [(1, 1), (1, 2000), (2000, 1), (31, 65), (65, 31), (65, 2000), (2000, 65),
+                                   (2000, 2000)])
+def test_hamming_top2_kernel_tile_edges(cuda, k1, k2):
+    """Sizes that cross the 64 x 64 tile edges, K1 != K2, and row and column
+    ties that straddle a tile boundary: exact against the plain version."""
+    rng = np.random.default_rng(k1 * 7 + k2)
+    d1, d2, v1, v2 = _tile_fixture(rng, k1, k2)
+    args = [_i32(d1).to(cuda), _i32(d2).to(cuda), torch.from_numpy(v1).to(cuda), torch.from_numpy(v2).to(cuda)]
+    out = mk.hamming_top2(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(out, mk.hamming_top2_ref(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_hamming_top2_kernel_all_invalid(cuda):
+    """All-invalid rows, columns and whole candidates, beside real ones:
+    BIG/BIG/0 and column argmin 0 exactly where the plain version has them."""
+    rng = np.random.default_rng(27)
+    d1, d2, v1, v2 = _tile_fixture(rng, 130, 200)
+    v1[64:128] = False  # a whole query tile
+    v2[:64] = False  # a whole train tile
+    d2 = np.stack([d2, d2, _packed(rng, 200)])
+    v2 = np.stack([v2, np.zeros(200, bool), rng.random(200) > 0.5])
+    args = [_i32(d1).to(cuda), _i32(d2).to(cuda), torch.from_numpy(v1).to(cuda), torch.from_numpy(v2).to(cuda)]
+    out = mk.hamming_top2_batched(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(out, mk.hamming_top2_batched_ref(*args)):
+        assert torch.equal(a, b)
+    assert (out[0][1] == mk.BIG).all() and (out[2][1] == 0).all() and (out[3][1] == 0).all()
+    none = torch.zeros(130, dtype=torch.bool, device=cuda)
+    out = mk.hamming_top2(args[0], args[1][0], none, args[3][0])  # no valid query at all
+    assert (out[0] == mk.BIG).all() and (out[1] == mk.BIG).all() and (out[2] == 0).all() and (out[3] == 0).all()
 
 
 # --- K4: Hamming top-2 against C candidate blocks ----------------------------
@@ -396,6 +506,28 @@ def test_guided_top2_kernel_matches_ref(cuda):
     assert torch.equal(lm_idx, r_idx)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Kp", [(4096, 5000), (61, 20), (100, 2049)])
+def test_guided_top2_kernel_chunks_and_edges(cuda, M, Kp):
+    """Keypoints past one 2048-wide shared-memory chunk, fewer keypoints
+    than lanes, and landmark counts that are not a multiple of the block's
+    16: exact against the plain version, ties included."""
+    rng = np.random.default_rng(M + Kp)
+    K, lm_pos, lm_desc, lm_valid, kp_xy, kp_desc, kp_valid = _guided_fixture(
+        rng, M=M, Kp=Kp, W=1240.0, H=376.0, F=718.856, plant=min(M, 3 * Kp))
+    kp_desc[Kp // 2:] = kp_desc[: Kp - Kp // 2]  # keypoint ties, across chunks where Kp > 2048
+    kp_xy[Kp // 2:] = kp_xy[: Kp - Kp // 2]
+    uv = lm_pos[:, :2] / lm_pos[:, 2:3] * 718.856 + np.array([620.0, 188.0], np.float32)
+    args = [_i32(lm_desc), torch.from_numpy(lm_valid), torch.from_numpy(uv.astype(np.float32)),
+            _i32(kp_desc), torch.from_numpy(kp_valid), torch.from_numpy(kp_xy)]
+    args = [a.to(cuda) for a in args] + [torch.tensor(30.0 * 30.0, device=cuda)]
+    lm_idx, valid = mk.guided_top2(*args)
+    torch.cuda.synchronize()
+    r_idx, r_valid = mk.guided_top2_ref(*args)
+    assert torch.equal(valid, r_valid)
+    assert torch.equal(lm_idx, r_idx)
+
+
 def test_wrappers_take_plain_version_on_cpu():
     """On CPU tensors the wrappers run the plain version and launch nothing."""
     rng = np.random.default_rng(18)
@@ -412,7 +544,7 @@ def test_track_step_cuda_matches_cpu(cuda):
     """The whole step on the card (kernels) against the same step on the
     CPU (plain versions), from the same state: both within (R 0.01, t 0.06)
     of ground truth and of each other on frames 1-2, and each step
-    launches K1 once per level and K2, K3 once."""
+    launches K1, K2 and K3 once each."""
     from render import camera_path, make_world, render, render_with_depth
     from visual_slam_tpu_torch import pipeline
 
@@ -424,7 +556,7 @@ def test_track_step_cuda_matches_cpu(cuda):
     frames = [render(world, T, K, W, H) for T in Ts]
     kw = dict(num_features=NF, fast_threshold=12.0, n_levels=2, grid=4, pnp_hypotheses=64,
               local_map=True, width=W, height=H)
-    cpu_step = pipeline.make_track_step(K, **kw)
+    cpu_step = pipeline.make_track_step(K, device="cpu", **kw)
     gpu_step = pipeline.make_track_step(K, device=cuda, **kw)
     feats = cpu_step.detect(torch.from_numpy(frames[0]))
     xy, valid = feats.xy.numpy(), feats.valid.numpy()
@@ -444,7 +576,7 @@ def test_track_step_cuda_matches_cpu(cuda):
         return pipeline.set_local_map(s, lm_pos, lm_desc, lm_valid)
 
     s_cpu, s_gpu = state("cpu"), state(cuda)
-    counts = (patches_and_moments.launches, mk.hamming_top2.launches, mk.guided_top2.launches)
+    counts = (patches_and_moments_levels.launches, mk.hamming_top2.launches, mk.guided_top2.launches)
     for i in (1, 2):
         s_cpu, o_cpu = cpu_step(s_cpu, torch.from_numpy(frames[i]))
         s_gpu, o_gpu = gpu_step(s_gpu, torch.from_numpy(frames[i]).to(cuda))
@@ -455,5 +587,5 @@ def test_track_step_cuda_matches_cpu(cuda):
             np.testing.assert_allclose(T[:3, 3], Ts[i][:3, 3], atol=0.06)
         np.testing.assert_allclose(T_g[:3, :3], T_c[:3, :3], atol=0.01)
         np.testing.assert_allclose(T_g[:3, 3], T_c[:3, 3], atol=0.06)
-    assert (patches_and_moments.launches - counts[0], mk.hamming_top2.launches - counts[1],
-            mk.guided_top2.launches - counts[2]) == (4, 2, 2)
+    assert (patches_and_moments_levels.launches - counts[0], mk.hamming_top2.launches - counts[1],
+            mk.guided_top2.launches - counts[2]) == (2, 2, 2)

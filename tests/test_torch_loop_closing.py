@@ -51,7 +51,7 @@ def ring():
     features of each (512, 2 levels), the matches linking each to the
     previous one, the drifted poses and the landmarks."""
     K, T_gt, imgs, depths = lw.ring_keyframes(n_frames=64, every=4, width=W, height=H, f=F, n_sprites=420)
-    step = pipeline.make_track_step(K, num_features=512, n_levels=2, grid=4, fast_threshold=12.0)
+    step = pipeline.make_track_step(K, device="cpu", num_features=512, n_levels=2, grid=4, fast_threshold=12.0)
     feats = [step.detect(torch.from_numpy(im)) for im in imgs]
     links = [None]
     for a, b in zip(feats[1:], feats[:-1]):

@@ -55,7 +55,7 @@ def setup():
 
 @pytest.fixture(scope="module")
 def tstep(setup):
-    return tp.make_track_step(setup[0], **STEP_KW)
+    return tp.make_track_step(setup[0], device="cpu", **STEP_KW)
 
 
 def test_state_carries_over_bit_for_bit(setup):
@@ -131,4 +131,4 @@ def test_init_track_state_and_stereo_refused(setup):
     assert s.lm_desc.shape == (M, 8) and s.lm_desc.dtype == torch.int32 and not bool(s.lm_valid.any())
     assert torch.equal(s.T_rel, torch.eye(4))
     with pytest.raises(NotImplementedError):
-        tp.make_track_step(K, stereo=True)
+        tp.make_track_step(K, stereo=True, device="cpu")

@@ -25,6 +25,7 @@ import numpy as np
 from ..config import Config
 from ..map.keyframe import KeyFrame
 from ..map.map_point import MapPoint
+from ..utils.device import default_device
 from ..utils.tree import to_device, to_host
 from .ba import BAProblem, bundle_adjust_robust
 
@@ -34,7 +35,7 @@ class BaseOptimizer(abc.ABC):
         self.config = config
         self.camera = camera
         self.logger = logger or logging.getLogger(self.__class__.__name__)
-        self.device = device
+        self.device = default_device(device)
 
     @abc.abstractmethod
     def optimize_initial(self, keyframes: Sequence[KeyFrame]) -> dict: ...

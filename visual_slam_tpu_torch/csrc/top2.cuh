@@ -57,9 +57,4 @@ __device__ __forceinline__ int hamming(const uint4& a0, const uint4& a1, const u
 
 __device__ __forceinline__ float as_distance(int d) { return d >= kBigD ? kBigF : static_cast<float>(d); }
 
-static __global__ void fill_int(int* __restrict__ p, int n, int v) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) p[i] = v;
-}
-
 }  // namespace vslam

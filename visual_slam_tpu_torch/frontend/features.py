@@ -14,6 +14,7 @@ import torch
 
 from ..ops import orb as orb_ops
 from ..ops.detector import Features, detect_and_describe
+from ..utils.device import default_device
 
 
 class BaseFeature2D(abc.ABC):
@@ -40,7 +41,7 @@ class FastOrbFeature2D(BaseFeature2D):
         self.n_levels = int(n_levels)
         self.scale_factor = float(scale_factor)
         self.grid = int(grid)
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = default_device(device)
         self.sampling = torch.tensor(orb_ops.sampling_matrix_np()).to(self.device)
         self.moment_w = torch.from_numpy(orb_ops.MOMENT_W_NP).to(self.device)
 

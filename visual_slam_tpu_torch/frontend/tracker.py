@@ -19,6 +19,7 @@ from ..config import FeatureConfig
 from ..ops import epipolar as ep_ops
 from ..ops.detector import Features
 from ..ops.matching import orientation_filter
+from ..utils.device import default_device
 from ..utils.tree import as_numpy as _np
 from .feature_manager import FeatureManager
 
@@ -64,7 +65,7 @@ class FeatureTrackingResult:
 class FeatureTracker:
     def __init__(self, config: FeatureConfig, device=None):
         self.config = config
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = default_device(device)
         self.manager = FeatureManager(config, device=self.device)
         fp = dict(config.filter_params)
         self.use_ransac_fund = bool(fp.get("use_ransac_fund_matrix", True))

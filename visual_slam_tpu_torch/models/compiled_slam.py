@@ -3,7 +3,9 @@
 
 ``CompiledSLAM(camera, config, device=...)`` then ``track(images,
 timestamp)`` per frame, ``flush()`` at the end of a sequence and
-``trajectory()`` for the per-frame poses. The first frames bootstrap the
+``trajectory()`` for the per-frame poses. ``device`` defaults to the card
+(``"cuda"``; without one the constructor raises): pass ``device="cpu"`` to
+run on the CPU through the kernels' plain versions. The first frames bootstrap the
 map (``Initializer``: two-view essential matrix + triangulation + BA);
 after that every frame runs the fused step on the device (detect with
 kernel K1, match with K2, guided arena match with K3, RANSAC-PnP), alone
@@ -61,6 +63,7 @@ from ..pipeline import (
     swap_reference,
 )
 from ..state import State
+from ..utils.device import default_device
 from ..utils.logging import get_logger
 from ..utils.tree import as_numpy as _np
 from ..utils.tree import to_device, to_host, tree_map
@@ -79,7 +82,7 @@ class CompiledSLAM:
                  device=None):
         self.camera = camera
         self.config = config or Config()
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = default_device(device)
         self.logger = get_logger("compiled_slam", log_dir)
         fcfg = self.config.feature
         tcfg = self.config.tracking

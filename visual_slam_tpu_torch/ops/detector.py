@@ -1,5 +1,5 @@
 """Multi-scale ORB detector: pyramid -> FAST -> NMS -> grid top-k ->
-moments + patches (kernel K1) -> steered BRIEF
+moments + patches (kernel K1, one launch for all levels) -> steered BRIEF
 (port of ``visual_slam_tpu.ops.detector``).
 
 The output always has exactly ``num_features`` slots with a validity mask.
@@ -13,7 +13,7 @@ import torch
 from . import fast as fast_ops
 from . import orb as orb_ops
 from . import pyramid as pyr_ops
-from .patch_kernels import patches_and_moments
+from .patch_kernels import patches_and_moments_levels
 
 
 class Features(NamedTuple):
@@ -66,32 +66,37 @@ def detect_and_describe(
     the (961, 2) moment weights, both on the image's device."""
     H0, W0 = img.shape
     img = img.to(torch.float32)
-    levels = pyr_ops.build_pyramid(img, n_levels, scale)
+    levels = [lvl.contiguous() for lvl in pyr_ops.build_pyramid(img, n_levels, scale)]
     quotas = level_quotas(num_features, n_levels, scale)
+    dets = [detect_level(lvl, k_l, threshold, grid, edge_margin) for lvl, k_l in zip(levels, quotas)]
+    blurred = [pyr_ops.gaussian_blur(lvl, sigma=2.0, radius=3) for lvl in levels]
+    # K1 once for every level; its outputs are level-major, as the features.
+    mom, patches = patches_and_moments_levels(levels, blurred, [d[0] for d in dets], moment_w)
+    ang = torch.atan2(mom[:, 1], mom[:, 0])
     outs = []
-    for l, (lvl, k_l) in enumerate(zip(levels, quotas)):
+    k0 = 0
+    for l, (lvl, k_l, (yx, resp, valid, sub)) in enumerate(zip(levels, quotas, dets)):
         Hl, Wl = lvl.shape
-        yx, resp, valid, sub = detect_level(lvl, k_l, threshold, grid, edge_margin)
-        blurred = pyr_ops.gaussian_blur(lvl, sigma=2.0, radius=3)
-        mom, patches = patches_and_moments(lvl.contiguous(), blurred, yx, moment_w)
-        ang = torch.atan2(mom[:, 1], mom[:, 0])
         sx = W0 / Wl
         sy = H0 / Hl
         xy_full = torch.stack(
             [(yx[:, 1].to(torch.float32) + sub[:, 1]) * sx, (yx[:, 0].to(torch.float32) + sub[:, 0]) * sy],
             dim=-1,
         )
+        ang_l = ang[k0:k0 + k_l]
         outs.append(
             Features(
                 xy=xy_full,
                 response=resp,
-                angle=ang,
+                angle=ang_l,
                 octave=torch.full((k_l,), l, dtype=torch.int32, device=img.device),
                 size=torch.full(
                     (k_l,), orb_ops.PATCH * (sx + sy) * 0.5, dtype=torch.float32, device=img.device
                 ),
-                desc=orb_ops.descriptors(patches, ang, sampling),
+                # Per level, as the JAX package: the product's rounding stays its own.
+                desc=orb_ops.descriptors(patches[k0:k0 + k_l], ang_l, sampling),
                 valid=valid,
             )
         )
+        k0 += k_l
     return Features(*[torch.cat([getattr(o, f) for o in outs], dim=0) for f in Features._fields])

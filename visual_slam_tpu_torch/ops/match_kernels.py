@@ -2,11 +2,11 @@
 (guided top-2) and their plain versions.
 
 Ports of ``visual_slam_tpu.ops.pallas_kernels.hamming_top2`` (K2) and
-``hamming_top2_batched`` with C > 1 (K4), both one CUDA kernel,
-``csrc/hamming_top2.cu``, launched with C = 1 or C; and of
-``guided_top2_pallas`` (K3), ``csrc/guided_top2.cu``. Descriptors are
-(N, 8) int32 words. Distances are exact integers either way, so kernel and
-plain version agree exactly, ties included.
+``hamming_top2_batched`` with C > 1 (K4), both ``csrc/hamming_top2.cu``
+(an int8 tensor-core tile kernel and its finisher) called with C = 1 or C;
+and of ``guided_top2_pallas`` (K3), ``csrc/guided_top2.cu``. Descriptors
+are (N, 8) int32 words. Distances are exact integers either way, so kernel
+and plain version agree exactly, ties included.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from .orb import unpack_bits
 
 BIG = 1e9
 _INT_MAX = 2**31 - 1
+_TILE = 64  # query rows and train columns of a block of csrc/hamming_top2.cu
 
 
 def hamming_distances(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.Tensor:
@@ -111,8 +112,9 @@ def _device(fn: str, t: torch.Tensor) -> str:
 
 
 def _launch_hamming_top2(name, desc_q, desc_c, valid_q, valid_c):
-    """One launch of ``csrc/hamming_top2.cu`` over (C, K2, 8) candidate
-    blocks; outputs carry the leading C axis."""
+    """One call of ``csrc/hamming_top2.cu`` (the tile kernel and its
+    finisher) over (C, K2, 8) candidate blocks; outputs carry the leading C
+    axis."""
     K1 = desc_q.shape[0]
     C, K2 = desc_c.shape[:2]
     dev = desc_q.device
@@ -124,15 +126,20 @@ def _launch_hamming_top2(name, desc_q, desc_c, valid_q, valid_c):
     ))
     if not (0 < K1 and 257 * K1 < _INT_MAX and 0 < K2 <= 5800 and 0 < C <= 65535 and C * K2 < _INT_MAX):
         raise ValueError(f"{name}: sizes K1={K1}, C={C}, K2={K2} out of the kernel's range")
+    n_rt, n_ct = -(-K1 // _TILE), -(-K2 // _TILE)
     best = torch.empty((C, K1), dtype=torch.float32, device=dev)
     second = torch.empty((C, K1), dtype=torch.float32, device=dev)
     arg = torch.empty((C, K1), dtype=torch.int32, device=dev)
     colarg = torch.empty((C, K2), dtype=torch.int32, device=dev)
-    colenc = torch.empty((C, K2), dtype=torch.int32, device=dev)
+    # Scratch: each active 64 x 64 tile's row and column partials, and
+    # which tiles were active (the others are never read).
+    rowpart = torch.empty((C, n_ct, K1), dtype=torch.int32, device=dev)
+    colpart = torch.empty((C, n_rt, K2), dtype=torch.int32, device=dev)
+    active = torch.empty((C, n_rt, n_ct), dtype=torch.uint8, device=dev)
     rc = _build.lib().vslam_hamming_top2(
         desc_q.data_ptr(), valid_q.data_ptr(), K1, desc_c.data_ptr(), valid_c.data_ptr(), K2, C,
-        best.data_ptr(), second.data_ptr(), arg.data_ptr(), colenc.data_ptr(), colarg.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        best.data_ptr(), second.data_ptr(), arg.data_ptr(), colarg.data_ptr(), rowpart.data_ptr(),
+        colpart.data_ptr(), active.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "vslam_hamming_top2")
     return best, second, arg, colarg
@@ -202,7 +209,7 @@ def guided_top2(
         raise ValueError(f"guided_top2: sizes M={M}, K={K} out of the kernel's range")
     lm_idx = torch.empty(K, dtype=torch.int32, device=dev)
     valid = torch.empty(K, dtype=torch.bool, device=dev)
-    colenc = torch.empty(K, dtype=torch.int32, device=dev)
+    colenc = torch.empty(K + 1, dtype=torch.int32, device=dev)  # per-keypoint minima, then blocks done
     rc = _build.lib().vslam_guided_top2(
         lm_desc.data_ptr(), lm_ok.data_ptr(), lm_uv.data_ptr(), M,
         kp_desc.data_ptr(), kp_valid.data_ptr(), kp_xy.data_ptr(), K,

@@ -2,15 +2,20 @@
 their plain PyTorch versions.
 
 Ports of ``visual_slam_tpu.ops.pallas_patches.patches_and_moments_pallas``
-(``csrc/patches_moments.cu``) and ``extract_patches32_pallas``
-(``csrc/extract_patches32.cu``).
+(``csrc/patches_moments.cu``, one launch for all pyramid levels of a frame)
+and ``extract_patches32_pallas`` (``csrc/extract_patches32.cu``).
 """
 from __future__ import annotations
+
+import ctypes
+from collections.abc import Sequence
 
 import torch
 
 from .. import _build
 from .orb import PATCH, RADIUS, extract_patches
+
+_MAX_LEVELS = 16  # kMaxLevels of csrc/patches_moments.cu
 
 
 def patches_and_moments_ref(
@@ -20,39 +25,62 @@ def patches_and_moments_ref(
     window of the raw level (one product with the (961, 2) ``moment_w``),
     and the (K, 31, 31) windows of the blurred level."""
     raw = extract_patches(img_raw, yx)
-    mom = raw.reshape(raw.shape[0], -1) @ moment_w
+    mom = raw.reshape(raw.shape[0], PATCH * PATCH) @ moment_w
     return mom, extract_patches(img_blur, yx)
 
 
-def patches_and_moments(
-    img_raw: torch.Tensor, img_blur: torch.Tensor, yx: torch.Tensor, moment_w: torch.Tensor
+def patches_and_moments_levels_ref(
+    raws: Sequence[torch.Tensor], blurs: Sequence[torch.Tensor], yxs: Sequence[torch.Tensor],
+    moment_w: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1: moments and blurred patches. CPU tensors take the plain version;
-    CUDA tensors launch the kernel, which derives the same disk-masked
-    weights as ``moment_w`` from the integer window offsets."""
-    if img_raw.device.type == "cpu":
-        return patches_and_moments_ref(img_raw, img_blur, yx, moment_w)
-    if img_raw.device.type != "cuda":
-        raise ValueError(f"patches_and_moments: no kernel for device {img_raw.device}")
-    H, W = img_raw.shape
-    K = yx.shape[0]
-    _build.check_args("patches_and_moments", img_raw.device, (
-        ("img_raw", img_raw, torch.float32, (H, W)),
-        ("img_blur", img_blur, torch.float32, (H, W)),
-        ("yx", yx, torch.int32, (K, 2)),
-    ))
-    mom = torch.empty((K, 2), dtype=torch.float32, device=img_raw.device)
-    patches = torch.empty((K, PATCH, PATCH), dtype=torch.float32, device=img_raw.device)
+    """Plain version of the multi-level K1: ``patches_and_moments_ref`` on
+    each level, concatenated level-major: (sum K_l, 2) moments and (sum K_l,
+    31, 31) patches."""
+    outs = [patches_and_moments_ref(r, b, yx, moment_w) for r, b, yx in zip(raws, blurs, yxs)]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+def patches_and_moments_levels(
+    raws: Sequence[torch.Tensor], blurs: Sequence[torch.Tensor], yxs: Sequence[torch.Tensor],
+    moment_w: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 over every pyramid level of a frame in one launch: per level l the
+    raw (H_l, W_l) level, its blurred copy and its (K_l, 2) int32 keypoints
+    (y, x); returns the moments and blurred patches of all keypoints,
+    level-major. CPU tensors take the plain version; CUDA tensors launch the
+    kernel, which derives the same disk-masked weights as ``moment_w`` from
+    the integer window offsets."""
+    dev = raws[0].device
+    if dev.type == "cpu":
+        return patches_and_moments_levels_ref(raws, blurs, yxs, moment_w)
+    if dev.type != "cuda":
+        raise ValueError(f"patches_and_moments_levels: no kernel for device {dev}")
+    n = len(raws)
+    if not (len(blurs) == len(yxs) == n and 0 < n <= _MAX_LEVELS):
+        raise ValueError(f"patches_and_moments_levels: {n} raw, {len(blurs)} blurred and {len(yxs)} keypoint "
+                         f"levels; needs 1 to {_MAX_LEVELS} of each")
+    for l, (raw, blur, yx) in enumerate(zip(raws, blurs, yxs)):
+        _build.check_args("patches_and_moments_levels", dev, (
+            (f"raws[{l}]", raw, torch.float32, raw.shape[:2]),
+            (f"blurs[{l}]", blur, torch.float32, raw.shape[:2]),
+            (f"yxs[{l}]", yx, torch.int32, (yx.shape[0], 2)),
+        ))
+    K = sum(int(yx.shape[0]) for yx in yxs)
+    mom = torch.empty((K, 2), dtype=torch.float32, device=dev)
+    patches = torch.empty((K, PATCH, PATCH), dtype=torch.float32, device=dev)
+    ptrs = lambda ts: (ctypes.c_void_p * n)(*[t.data_ptr() for t in ts])  # noqa: E731
+    ints = lambda xs: (ctypes.c_int * n)(*xs)  # noqa: E731
     rc = _build.lib().vslam_patches_moments(
-        img_raw.data_ptr(), img_blur.data_ptr(), H, W, yx.data_ptr(), K,
-        mom.data_ptr(), patches.data_ptr(), torch.cuda.current_stream(img_raw.device).cuda_stream,
+        n, ptrs(raws), ptrs(blurs), ptrs(yxs), ints([r.shape[0] for r in raws]), ints([r.shape[1] for r in raws]),
+        ints([yx.shape[0] for yx in yxs]), mom.data_ptr(), patches.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "vslam_patches_moments")
-    patches_and_moments.launches += 1
+    patches_and_moments_levels.launches += 1
     return mom, patches
 
 
-patches_and_moments.launches = 0
+patches_and_moments_levels.launches = 0
 
 
 P32 = 32  # rows and columns of a K5 window

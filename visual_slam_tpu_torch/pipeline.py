@@ -32,6 +32,7 @@ from .ops.matching import match_descriptors
 from .ops.pnp import _reproj_err2, ransac_pnp, refine_pose_gn
 from .ops.projection import normalize_points
 from .ops.triangulation import triangulate_gated
+from .utils.device import default_device
 from .utils.tree import to_device
 
 
@@ -69,7 +70,8 @@ class TrackStep(nn.Module):
 
     Buffers: the intrinsics ``K`` and ``Kinv``, the (961, 15360) rotated-BRIEF
     ``sampling`` matrix, the (961, 2) ``moment_w`` weights and the inlier
-    threshold ``thresh`` in normalized units."""
+    threshold ``thresh`` in normalized units, all on ``device`` (the card
+    unless the caller passes ``device="cpu"``)."""
 
     def __init__(
         self,
@@ -108,7 +110,7 @@ class TrackStep(nn.Module):
         self.height = float(height) if height is not None else float(2.0 * K32[1, 2])
         self.guided_radius_px = guided_radius_px
         self.guided_ratio = guided_ratio
-        self.to(device)
+        self.to(default_device(device))
 
     def detect(self, img: torch.Tensor) -> Features:
         return detect_and_describe(
