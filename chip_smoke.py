@@ -44,16 +44,45 @@
    window, launch counts that disagree with the detects and matches the run
    made, ATE above FP_ATE_PCT_MAX % of the path, or the first heavy BA
    solved again on the CPU disagreeing with the card's.
-8. Prints a JSON line of the kernels, then ``{"ok": true, "device": ...}``
+8. Host SLAM facade (``SLAM``, tests/facade_world.py's worlds), one JSON
+   line per phase:
+   a. deployment: ``bench.synth_kitti_frames(64, seed=3, step=0.6,
+      n_sprites=1500)`` at 376x1240 through synchronous ``SLAM`` with
+      bench_full_pipeline's settings that the facade reads (2000 features,
+      4 levels, keyframe interval 4, BA window 16), loop closing off, with
+      the tracker's default RANSAC seed and with FACADE_SEEDS: FPS after
+      the bootstrap, keyframe and per-frame ATE, keyframes, landmarks, LOST
+      and relocalization counts, host ms per frame by stage, host syncs per
+      frame (the 8 frames after the bootstrap, by source line, default
+      seed), K1-K4 launches, peak memory; then each seed's outcome. A run
+      fails if it has a LOST frame or jumps scale (keyframe ATE above
+      FACADE_JUMP_PCT). Fails on more failed runs than the JAX package has
+      at the same seeds, a median ATE above FACADE_*_ATE_PCT_MAX, a median
+      keyframe count outside FACADE_KF_RANGE, or launches that disagree
+      with the detects, matches and guided matches the run made;
+   b. endurance: bench_loop_endurance_device's world (320x240 ring, 200
+      frames, a blackout at frames 60-62) with loop closing on and off:
+      ATE, closures, relocalizations, LOST frames, the final state, the
+      loop detection funnel, K4 launches; fails unless both end OK after at
+      least one relocalization and closures reach the JAX package's;
+   c. threaded: the deployment world through ``SLAM(threaded=True)``;
+      fails unless it ends OK with no failed thread step, ``shutdown()``
+      returns within 30 s and the keyframe ATE is within twice a's gate;
+   d. ``Processing``: an in-memory source of the deployment world's first
+      16 frames with the KITTI P0 calibration; fails unless it ends OK with
+      a pose for every frame after the bootstrap.
+9. Prints a JSON line of the kernels, then ``{"ok": true, "device": ...}``
    as the last line. Any failure raises and exits nonzero.
 
 K5 has no caller in either package: only phase 3 launches it. The
-kernels' launch counts add up the tracking, loop and full-pipeline phases.
+kernels' launch counts add up the tracking, loop, full-pipeline and facade
+phases.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -91,6 +120,31 @@ FP_FRAMES, FP_SPRITES, FP_STEP, FP_SEED, FP_CHUNK, FP_HEAVY = 64, 1500, 0.6, 3, 
 # bench_full_pipeline, and 2.0 %).
 FP_ATE_PCT_MAX = 2.0
 BA_COST_RTOL, BA_POSE_ATOL = 1e-3, 1e-3  # the heavy BA on the card against the CPU
+# Host facade (SLAM), tests/facade_world.py's worlds. The JAX package's CPU
+# runs of them (scripts/facade_reference.py --seeds): deploy, over its
+# tracker's default RANSAC key 13 and seeds 0-7, 21-37 keyframes (median
+# 23), keyframe ATE 0.470-18.342 % of the path (median 0.610 %), per-frame
+# ATE 0.524-18.738 % (median 1.571 %); two of these nine runs (seeds 2 and
+# 4) jump scale on a keyframe posed from 12-15 inliers. Over seeds 0-23 it
+# fails 3 of 24 runs: seeds 2 and 4 jump (14.9-18.3 %), seed 18 goes LOST
+# at frame 62; the clean runs stay under 2.1 %. So one run is a draw, a
+# LOST one included: from the port's state after frame 14 of a run that
+# went LOST (scripts/facade_state_probe.py), 16 reseeded continuations go
+# LOST in neither package, and from its state after frame 20 neither
+# package relocalizes. Each of the nine seeded runs here is classed and
+# printed; the gates read the count of failed runs and the medians of the
+# ATEs and keyframe counts. Endurance, loop closing on and off alike:
+# final state OK, 3 LOST frames (the blackout), 1 relocalization, 0
+# closures, 96 keyframes, keyframe ATE 5.198 %. Gates: failed runs at most
+# JAX's at these seeds, median ATE at most max(2 x JAX's median, 2.0 %),
+# median keyframes within 30 % of 23, closures at least JAX's, ATE on
+# below off only where JAX's was.
+FACADE_FRAMES, FACADE_SYNC, PROCESSING_FRAMES = 64, 8, 16
+FACADE_SEEDS = (0, 1, 2, 3, 4, 5, 6, 7)
+FACADE_KF_ATE_PCT_MAX, FACADE_FRAME_ATE_PCT_MAX = 2.0, 3.142
+FACADE_KF_RANGE = (17, 29)
+FACADE_JUMP_PCT, FACADE_JAX_FAILED_RUNS = 5.0, 2
+ENDURANCE_JAX_CLOSURES, ENDURANCE_JAX_ON_BELOW_OFF = 0, False
 
 
 def log(msg: str) -> None:
@@ -825,6 +879,289 @@ def run_full_pipeline(torch, np, dev, counters):
     return launches, report
 
 
+def facade_counters(slam, seen, stage_ms, timing):
+    """Wrap the facade's stages: count the calls that launch a kernel
+    (detects: K1; matches: K2; guided matches: K3; loop detects that reach
+    the matcher: K4) and, while ``timing["on"]``, add each stage's host
+    milliseconds to ``stage_ms``. Keyframe creation holds local mapping
+    (synchronous mode); the report subtracts it. Returns a function that
+    undoes the module-level wrap."""
+    from visual_slam_tpu_torch.ops import guided_matching
+
+    tr, lm, lh = slam.tracking, slam.local_mapping, slam.local_handler
+
+    def wrap(owner, attr, stage=None, count=None):
+        fn = getattr(owner, attr)
+
+        def run(*a, **kw):
+            if count:
+                seen[count] += 1
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if stage and timing["on"]:
+                    stage_ms[stage] += (time.perf_counter() - t) * 1e3
+        setattr(owner, attr, run)
+
+    wrap(slam.feature_tracker, "detectAndCompute", "detect", "detect")
+    wrap(slam.feature_tracker, "match", None, "match")
+    wrap(tr, "_track_guided", "guided")
+    wrap(tr, "_track_local_map", "local-map match")
+    wrap(tr, "_optimize_pose", "PnP")
+    wrap(tr, "_create_keyframe", "keyframe creation")
+    wrap(lm, "process_keyframe", "local mapping")
+    wrap(lh, "step", "local BA")
+    if slam.loop_closing is not None:
+        lc = slam.loop_closing
+        detect = lc.detect
+
+        def loop_detect(kf):
+            det = detect(kf)
+            if lc.funnel:  # reached the matcher: one K4 launch
+                seen["loop_match"] += 1
+                seen.setdefault("funnels", []).append(
+                    dict(kf=kf.keyframe_id, shortlist=len(lc.funnel["shortlist"]),
+                         top_matches=sorted(lc.funnel["n_matches"], reverse=True)[:2],
+                         inliers=list(lc.funnel["inliers"].values()),
+                         candidate=None if det is None else det["candidate"].keyframe_id))
+            return det
+        lc.detect = loop_detect
+    guided0 = guided_matching.guided_match
+    wrap(guided_matching, "guided_match", None, "guided")
+    return lambda: setattr(guided_matching, "guided_match", guided0)
+
+
+def facade_run(torch, np, dev, counters, frames, K, Ts_gt, cfg, threaded=False, sync_frames=0, ransac_seed=None):
+    """One facade run over ``frames`` through ``SLAM.track``, the stages
+    timed after the bootstrap; the host syncs counted by source line over
+    the first ``sync_frames`` frames after it (those frames are left out of
+    the timing). ``ransac_seed`` reseeds the tracker's RANSAC generator (13
+    by default). Returns (slam, report)."""
+    import facade_world as fw
+
+    from visual_slam_tpu_torch.camera import PinholeCamera
+    from visual_slam_tpu_torch.slam import SLAM
+    from visual_slam_tpu_torch.utils.metrics import ate_rmse
+
+    h, w = frames[0].shape
+    gc.collect()  # the previous run's SLAM (its reference cycles hold device tensors)
+    torch.cuda.reset_peak_memory_stats()
+    slam = SLAM(PinholeCamera(width=w, height=h, K=np.asarray(K, np.float64)), cfg, threaded=threaded, device=dev)
+    if ransac_seed is not None:
+        slam.tracking._gen.manual_seed(ransac_seed)
+    seen, stage_ms, timing = collections.Counter(), collections.Counter(), {"on": False}
+    unwrap = facade_counters(slam, seen, stage_ms, timing)
+    for fn in counters:
+        fn.launches = 0
+    states, relocs, poses, sync_at = [], 0, [], collections.Counter()
+    boot, t0, n_timed = None, None, 0
+    for i, img in enumerate(frames):
+        counting = boot is not None and i <= boot + sync_frames
+        with (count_syncs(torch) if counting else contextlib.nullcontext()) as syncs:
+            info = slam.track([img], timestamp=i * fw.DT)
+            if counting:
+                torch.cuda.synchronize()
+        if counting:
+            sync_at.update(syncs)
+        states.append(info["state"])
+        relocs += bool(info.get("relocalized"))
+        if info["state"] == "OK":
+            poses.append((i * fw.DT, np.array(slam.tracking.last_frame.T_w2c)))
+        if boot is None and info["state"] == "OK":
+            boot = i
+        if boot is not None and i == boot + sync_frames:
+            torch.cuda.synchronize()
+            t0, timing["on"] = time.perf_counter(), True
+        elif t0 is not None:
+            n_timed += 1
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0 if t0 is not None else 0.0
+    timing["on"] = False
+    t_sd = time.perf_counter()
+    slam.shutdown()
+    shutdown_s = time.perf_counter() - t_sd
+    torch.cuda.synchronize()
+    unwrap()
+    launches = [fn.launches for fn in counters]
+    res = {"states": states, "relocs": relocs, "poses": poses, "boot": boot if boot is not None else len(frames),
+           "secs_after_boot": dt}
+    report = fw.summary(slam, res, Ts_gt, ate_rmse)
+    report.update(ransac_seed=13 if ransac_seed is None else ransac_seed, fps_after_boot=n_timed / dt if dt > 0 else 0.0, frames_timed=n_timed, shutdown_s=shutdown_s,
+                  launches=launches[:4], detects=seen["detect"], matches=seen["match"], guided=seen["guided"],
+                  loop_matches=seen["loop_match"], peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                  thread_failures=slam.local_mapping.failures + slam.local_handler.failures
+                  + slam.global_handler.failures)
+    if n_timed:
+        ms = {k: v / n_timed for k, v in stage_ms.items()}
+        if not threaded:  # inline local mapping runs inside keyframe creation
+            ms["keyframe creation"] = ms.get("keyframe creation", 0.0) - ms.get("local mapping", 0.0)
+        ms["total"] = dt * 1e3 / n_timed
+        report["host_ms_per_frame"] = {k: round(v, 3) for k, v in ms.items()}
+    if sync_frames:
+        report["syncs_per_frame"] = sum(sync_at.values()) / sync_frames
+        report["syncs_by_line"] = dict(sync_at.most_common(12))
+    if "funnels" in seen:
+        report["funnel"] = seen["funnels"]
+    return slam, report
+
+
+def check_facade_launches(name, r, tracked):
+    """Each kernel's launches equal the wrapper calls of the run: K1 one per
+    detect, K2 one per match, K3 one per guided association, K4 one per
+    loop detect that reached the matcher. K1 and K3 run at least once per
+    tracked frame; K2 at least once per keyframe after the bootstrap pair
+    (local mapping matches each against its neighbours): a frame whose
+    guided association holds takes no brute K2 match, by design in both
+    packages."""
+    expected = [r["detects"], r["matches"], r["guided"], r["loop_matches"]]
+    if r["launches"] != expected:
+        raise AssertionError(f"{name}: launches K1-K4 {r['launches']} != the run's calls {expected}")
+    if r["launches"][0] < tracked or r["launches"][2] < tracked or r["launches"][1] < r["keyframes"] - 2:
+        raise AssertionError(f"{name}: K1/K2/K3 launched {r['launches'][:3]} times for {tracked} tracked frames and "
+                             f"{r['keyframes']} keyframes")
+
+
+def run_facade_phases(torch, np, dev, counters):
+    """The host SLAM facade (``SLAM``) on the card: the deployment world
+    (synchronous and threaded), the loop endurance world (loop closing on
+    and off) and ``Processing`` over an in-memory source. Prints one JSON
+    line per phase; returns the launches of ``counters`` summed over the
+    phases; raises if a gate fails."""
+    import facade_world as fw
+
+    from visual_slam_tpu_torch.config import Config
+    from visual_slam_tpu_torch.io import DataSourceBase
+    from visual_slam_tpu_torch.processing import Processing
+
+    total = [0] * len(counters)
+
+    def add(launches):
+        for k, n in enumerate(launches):
+            total[k] += n
+
+    def show(name, r):
+        keep = {k: v for k, v in r.items() if k != "funnel"}
+        log(json.dumps({"phase": name, **keep}, default=float))
+
+    # 1. Deployment size, synchronous: the default RANSAC seed (timed, its
+    # syncs counted), then the other seeds; each run classed, the gates
+    # read the failed runs and the medians.
+    frames, K, Ts = fw.deploy_frames(FACADE_FRAMES)
+    deploy = []
+    for seed in (None, *FACADE_SEEDS):
+        t0 = time.perf_counter()
+        slam, r = facade_run(torch, np, dev, counters, frames, K, Ts, fw.deploy_config(Config),
+                             sync_frames=FACADE_SYNC if seed is None else 0, ransac_seed=seed)
+        r["wall_s"] = time.perf_counter() - t0
+        add(r["launches"] + [0])
+        kf_pct = r.get("ate_keyframes", {}).get("pct", float("inf"))  # none under 3 keyframes
+        r["outcome"] = ("LOST" if r["lost_after_boot"] else "scale jump" if kf_pct > FACADE_JUMP_PCT else "clean")
+        show("facade_deploy", r)
+        check_facade_launches("facade", r, len(frames) - r["boot_frame"] - 1 - r["lost_after_boot"])
+        deploy.append(r)
+    kf_ates = [r.get("ate_keyframes", {}).get("pct", float("inf")) for r in deploy]
+    fr_ates = [r.get("ate_frames", {}).get("pct", float("inf")) for r in deploy]
+    kf_ate, fr_ate = statistics.median(kf_ates), statistics.median(fr_ates)
+    n_kf = statistics.median(r["keyframes"] for r in deploy)
+    failed = [(r["ransac_seed"], r["outcome"]) for r in deploy if r["outcome"] != "clean"]
+    log(json.dumps({"phase": "facade_deploy_seeds", "ransac_seeds": [r["ransac_seed"] for r in deploy],
+                    "outcomes": [r["outcome"] for r in deploy], "lost_frames": [r["lost_after_boot"] for r in deploy],
+                    "ate_keyframes_pct": kf_ates, "ate_frames_pct": fr_ates,
+                    "keyframes": [r["keyframes"] for r in deploy], "failed_runs": failed,
+                    "median_ate_keyframes_pct": kf_ate, "median_ate_frames_pct": fr_ate, "median_keyframes": n_kf}))
+    if len(failed) > FACADE_JAX_FAILED_RUNS:
+        raise AssertionError(f"facade: {len(failed)} of {len(deploy)} seeded runs failed {failed}, the JAX package "
+                             f"fails {FACADE_JAX_FAILED_RUNS} at these seeds")
+    if kf_ate > FACADE_KF_ATE_PCT_MAX or fr_ate > FACADE_FRAME_ATE_PCT_MAX:
+        raise AssertionError(f"facade median ATE {kf_ate:.3f} % (keyframes) / {fr_ate:.3f} % (frames) above "
+                             f"{FACADE_KF_ATE_PCT_MAX} / {FACADE_FRAME_ATE_PCT_MAX} %")
+    if not FACADE_KF_RANGE[0] <= n_kf <= FACADE_KF_RANGE[1]:
+        raise AssertionError(f"facade: median {n_kf} keyframes outside {FACADE_KF_RANGE}")
+
+    # 2. Endurance: loop closing on and off.
+    eframes, eK, eTs = fw.endurance_frames()
+    ends = {}
+    for loop_on in (True, False):
+        slam, r = facade_run(torch, np, dev, counters, eframes, eK, eTs, fw.endurance_config(Config, loop_on))
+        add(r["launches"] + [0])
+        ends[loop_on] = r
+        show(f"facade_endurance_loop_{'on' if loop_on else 'off'}", r)
+        for f in r.get("funnel", []):
+            log(f"  loop detect kf {f['kf']}: shortlist {f['shortlist']}, top matches {f['top_matches']}, "
+                f"PnP inliers {f['inliers']}, candidate {f['candidate']}")
+        if r["state"] != "OK":
+            raise AssertionError(f"endurance (loop {loop_on}): final state {r['state']}")
+        if r["relocalizations"] < 1:
+            raise AssertionError(f"endurance (loop {loop_on}): no relocalization after the blackout")
+        check_facade_launches("endurance", r, len(eframes) - r["boot_frame"] - 1 - r["lost_after_boot"])
+    on, off = ends[True], ends[False]
+    if on["closures"] < ENDURANCE_JAX_CLOSURES:
+        raise AssertionError(f"endurance: {on['closures']} closures, the JAX package closed {ENDURANCE_JAX_CLOSURES}")
+    if ENDURANCE_JAX_ON_BELOW_OFF and not on["ate_keyframes"]["pct"] < off["ate_keyframes"]["pct"]:
+        raise AssertionError("endurance: ATE with loop closing not below ATE without, as the JAX package's was")
+    if on["launches"][3] != on["loop_matches"] or on["loop_matches"] < 1:
+        raise AssertionError(f"endurance: K4 launched {on['launches'][3]} times for {on['loop_matches']} detects")
+
+    # 3. Threaded: the deployment world with local mapping and BA on threads.
+    t0 = time.perf_counter()
+    slam, r = facade_run(torch, np, dev, counters, frames, K, Ts, fw.deploy_config(Config), threaded=True)
+    r["wall_s"] = time.perf_counter() - t0
+    add(r["launches"] + [0])
+    show("facade_threaded", r)
+    if r["state"] != "OK" or r["thread_failures"]:
+        raise AssertionError(f"threaded: final state {r['state']}, {r['thread_failures']} failed thread steps")
+    if r["shutdown_s"] > 30.0:
+        raise AssertionError(f"threaded: shutdown() took {r['shutdown_s']:.1f} s")
+    if r["ate_keyframes"]["pct"] > 2 * FACADE_KF_ATE_PCT_MAX:
+        raise AssertionError(f"threaded: keyframe ATE {r['ate_keyframes']['pct']:.3f} % above "
+                             f"{2 * FACADE_KF_ATE_PCT_MAX} %")
+
+    # 4. Processing over an in-memory source with the KITTI P0 calibration.
+    class Frames(DataSourceBase):
+        def __init__(self, imgs):
+            self.imgs, self.i = imgs, 0
+
+        def get_frame(self):
+            self.i += 1
+            return self.imgs[self.i - 1], (self.i - 1) * fw.DT
+
+        def is_ok(self):
+            return self.i < len(self.imgs)
+
+        def get_frame_shape(self):
+            return self.imgs[0].shape
+
+    import tempfile
+
+    for fn in counters:
+        fn.launches = 0
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        calib = Path(d) / "calib.txt"
+        calib.write_text(f"P0: {K[0, 0]} 0 {K[0, 2]} 0 0 {K[1, 1]} {K[1, 2]} 0 0 0 1 0\n")
+        proc = Processing(Frames(frames[:PROCESSING_FRAMES]), calib, fw.deploy_config(Config), device=dev)
+    slam = proc.slam
+    states = []
+    track = slam.track
+
+    def track_logged(images, ts, depth=None):
+        info = track(images, ts, depth=depth)
+        states.append((info["state"], np.array(slam.tracking.last_frame.T_w2c) if info["state"] == "OK" else None))
+        return info
+
+    slam.track = track_logged
+    out = proc.run()
+    torch.cuda.synchronize()
+    add([fn.launches for fn in counters][:4] + [0])
+    boot = next(i for i, (s, _) in enumerate(states) if s == "OK")
+    posed = [T is not None and np.isfinite(T).all() for _, T in states[boot:]]
+    log(json.dumps({"phase": "processing", **out, "boot_frame": boot, "posed_after_boot": int(sum(posed)),
+                    "launches": [fn.launches for fn in counters][:4]}))
+    if out["state"] != "OK" or out["frames"] != PROCESSING_FRAMES or not all(posed):
+        raise AssertionError(f"processing: {out}, poses after the bootstrap {posed}")
+    return total
+
+
 def run_pose_graphs(torch, np, dev):
     """bench_pose_graph's SE(3) problem and a drifted Sim(3) loop, both at
     PG_NODES: the cost must fall; ms per solve after one warm-up."""
@@ -986,11 +1323,12 @@ def main() -> int:
     run_pose_graphs(torch, np, dev)
     loop_launches = run_loop_path(torch, np, step, dev, counters)
     fp_launches, _ = run_full_pipeline(torch, np, dev, counters)
-    for row, a, b, c in zip(rows, launches, loop_launches, fp_launches):
-        row["launches"] = a + b + c
-    log("launches per kernel (tracking, loop path, full pipeline): "
-        f"{[(r['name'], a, b, c) for r, a, b, c in zip(rows, launches, loop_launches, fp_launches)]}; "
-        "K5 has no caller on any path")
+    facade_launches = run_facade_phases(torch, np, dev, counters)
+    parts = list(zip(launches, loop_launches, fp_launches, facade_launches))
+    for row, part in zip(rows, parts):
+        row["launches"] = sum(part)
+    log("launches per kernel (tracking, loop path, full pipeline, facade phases): "
+        f"{[(r['name'], *part) for r, part in zip(rows, parts)]}; K5 has no caller on any path")
 
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

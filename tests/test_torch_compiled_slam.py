@@ -1,23 +1,26 @@
 """The torch port's ``CompiledSLAM`` (mono) on ``tests/test_compiled_slam.py``'s
 worlds, held to the same gates, and head to head with the JAX package.
 
-The 14-frame world runs the port from its own bootstrap. The chunked,
-self-promoting and landmark-budget worlds start the port from the map the
-JAX package bootstrapped on the same frames (carried over with
-``interop.map_from_numpy``): on these tiny synthetic worlds the two-view
-bootstrap is chaotic (a descriptor bit that flips on a flat, exactly tied
-patch changes the match set, and the essential-matrix RANSAC's inlier count
-with it), so a shared start keeps the comparison on the slice that follows
+The 14-frame world, the blank-frame (``reloc``), landmark-budget and
+loop-closing worlds run the port from its own two-view bootstrap. The
+chunked and self-promoting worlds start the port from the map the JAX
+package bootstrapped on the same frames (carried over with
+``interop.map_from_numpy``). The port's bootstrap is not biased against the
+JAX package's (ROADMAP queue 3, Q3.1: over 11 seeds of this world the
+packages' landmark counts have means 71.2 and 75.1, tests/test_torch_bootstrap.py),
+but on this seed it draws 59 landmarks where JAX draws 84, and the chunked
+world, which sits at the plain chunk's match-decay horizon, then ends at
+ATE 0.497 against its 0.45 gate; the self-promoting world is the head-to-
+head comparison, which needs one shared start to compare the slice after
 the bootstrap. Head to head on the self-promoting world: the port's ATE
 within max(1.5 x the JAX run's, JAX + 0.05) and its keyframe count within
 2 of the JAX run's.
 
-The chunked world sits at the plain chunk's match-decay horizon: its
-chunks end on 5 to 9 PnP inliers against ``min_inliers`` 10 in both
-packages, so whether a chunk keeps a healthy frame to promote turns on
-float rounding, which differs with the number of CPU threads. The runs pin
-2 intra-op threads, whatever the other test modules set, so they are
-reproducible."""
+The chunked world's chunks end on 5 to 9 PnP inliers against
+``min_inliers`` 10 in both packages, so whether a chunk keeps a healthy
+frame to promote turns on float rounding, which differs with the number of
+CPU threads. The runs pin 2 intra-op threads, whatever the other test
+modules set, so they are reproducible."""
 import contextlib
 import itertools
 
@@ -95,7 +98,8 @@ def test_compiled_slam_trajectory(frame_run):
     assert _ate(slam, Ts_gt) < 0.35
 
 
-# --------------------------------------------- runs from the JAX bootstrap
+# ------------------------------------ runs from the port's or JAX's bootstrap
+OWN_BOOTSTRAP = ("reloc", "budget", "loop")
 WORLDS = {  # name: (frames, config changes)
     "reloc": (12, dict()),  # per frame, frame RELOC_BLANK blanked out
     "chunked": (15, dict(chunk_size=4)),
@@ -141,8 +145,10 @@ def _port_from_map(m, cfg, camera, T_boot, t_boot):
 @pytest.fixture(scope="module")
 def runs():
     """The JAX package bootstraps the 17-frame world and runs the
-    self-promoting configuration to the end; the port continues each world
-    from a copy of that bootstrap map."""
+    self-promoting configuration to the end; the port runs the worlds of
+    ``OWN_BOOTSTRAP`` from its own bootstrap and continues the others from
+    a copy of the JAX bootstrap map. Each world's infos start at the first
+    frame tracked after its bootstrap."""
     rng = np.random.default_rng(42)
     frames, Ts_gt, K, _ = render_sequence(rng, n_frames=17, step=0.3)
     jcfg = jax_small_config()
@@ -160,11 +166,19 @@ def runs():
     js.shutdown()
     out = {"jax": (js, None, Ts_gt)}
     for name, (n, changes) in WORLDS.items():
-        slam = _port_from_map(maps[name], _configure(small_config(), changes), _camera(PinholeCamera, frames, K),
-                              boot[1], (boot[0] - 1) * 0.1)
+        cfg, cam = _configure(small_config(), changes), _camera(PinholeCamera, frames, K)
         with _threads(2):
+            if name in OWN_BOOTSTRAP:
+                slam = CompiledSLAM(cam, cfg, device="cpu")
+                start = 0
+                while slam.state != State.OK:
+                    slam.track([frames[start]], timestamp=start * 0.1)
+                    start += 1
+            else:
+                slam = _port_from_map(maps[name], cfg, cam, boot[1], (boot[0] - 1) * 0.1)
+                start = boot[0]
             infos = [slam.track([np.zeros_like(frames[k]) if name == "reloc" and k == RELOC_BLANK else frames[k]],
-                                timestamp=k * 0.1) for k in range(boot[0], n)]
+                                timestamp=k * 0.1) for k in range(start, n)]
             slam.shutdown()
         out[name] = (slam, infos, Ts_gt)
     return out

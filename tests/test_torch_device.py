@@ -9,11 +9,33 @@ from visual_slam_tpu_torch.camera import PinholeCamera
 from visual_slam_tpu_torch.config import Config
 from visual_slam_tpu_torch.frontend.features import FastOrbFeature2D
 from visual_slam_tpu_torch.frontend.tracker import FeatureTracker
+from visual_slam_tpu_torch.handlers import GlobalHandler, LocalHandler
+from visual_slam_tpu_torch.io import DataSourceBase
+from visual_slam_tpu_torch.local_mapping import LocalMapping
+from visual_slam_tpu_torch.map import Map
 from visual_slam_tpu_torch.models import CompiledSLAM
-from visual_slam_tpu_torch.pipeline import make_track_step
+from visual_slam_tpu_torch.pipeline import make_frame_step, make_track_step
+from visual_slam_tpu_torch.processing import Processing
+from visual_slam_tpu_torch.slam import SLAM
+from visual_slam_tpu_torch.tracking import Tracking
 from visual_slam_tpu_torch.utils.device import default_device
 
 K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]])
+
+
+def _cam():
+    return PinholeCamera(width=320, height=240, K=K)
+
+
+class _Blank(DataSourceBase):
+    def get_frame(self):
+        return np.zeros((240, 320), np.float32), 0.0
+
+    def is_ok(self):
+        return True
+
+    def get_frame_shape(self):
+        return (240, 320)
 
 ENTRY_POINTS = {
     "CompiledSLAM": lambda **kw: CompiledSLAM(PinholeCamera(width=320, height=240, K=K), Config(), **kw),
@@ -21,6 +43,15 @@ ENTRY_POINTS = {
     "FeatureTracker": lambda **kw: FeatureTracker(Config().feature, **kw),
     "FastOrbFeature2D": lambda **kw: FastOrbFeature2D(num_features=64, **kw),
     "LMOptimizer": lambda **kw: LMOptimizer(Config(), PinholeCamera(width=320, height=240, K=K), **kw),
+    "SLAM": lambda **kw: SLAM(_cam(), Config(), **kw),
+    "Tracking": lambda **kw: Tracking(_cam(), Config(), FeatureTracker(Config().feature, device="cpu"), Map(), None,
+                                      **kw),
+    "LocalMapping": lambda **kw: LocalMapping(_cam(), Config(), Map(), FeatureTracker(Config().feature, device="cpu"),
+                                              **kw),
+    "LocalHandler": lambda **kw: LocalHandler(Map(), None, _cam(), Config(), **kw),
+    "GlobalHandler": lambda **kw: GlobalHandler(Map(), None, _cam(), Config(), **kw),
+    "Processing": lambda **kw: Processing(_Blank(), None, Config(), **kw),
+    "make_frame_step": lambda **kw: make_frame_step(K, 320.0, 240.0, num_features=64, **kw),
 }
 
 

@@ -25,7 +25,7 @@ from .map import Frame, KeyFrame, Map, MapPoint
 from .ops import epipolar as ep_ops
 from .ops import triangulation as tri_ops
 from .ops.projection import normalize_points
-from .tracking import undistort_features
+from .tracking import _to_gray, undistort_features
 from .utils.tree import to_host
 
 
@@ -192,10 +192,6 @@ class Initializer:
             err_after = self.map.compute_mean_reprojection_error(self.camera.K)
             self.logger.info("init BA: reproj %.3fpx -> %.3fpx", err_before, err_after)
         self.initialized = True
-
-
-def _to_gray(img: np.ndarray) -> np.ndarray:
-    return (0.299 * img[..., 0] + 0.587 * img[..., 1] + 0.114 * img[..., 2]).astype(np.float32)
 
 
 def _pixel_color(img: np.ndarray | None, xy: np.ndarray) -> np.ndarray:

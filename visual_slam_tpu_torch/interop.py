@@ -9,6 +9,8 @@ numpy arrays, anything ``np.asarray`` reads, or the port's own tensors.
 """
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
@@ -135,18 +137,61 @@ def map_from_numpy(keyframes, points, device=None) -> Map:
     for src in keyframes:
         m.add_keyframe(keyframe_from_numpy(src.features, src.T_w2c, src.keyframe_id, frame_id=src.id,
                                            timestamp=src.timestamp, device=device))
-    by_id = {}
-    for src in points:
+    def copy_point(src) -> MapPoint:
         desc = getattr(src, "descriptor", None)
         mp = MapPoint(_np(src.position), descriptor=None if desc is None else desc_to_int32(desc))
         mp.id = int(src.id)
         mp.is_bad = bool(src.is_bad)
         for kf_id, cam_id, kp_idx in src.observations.items():
             mp.add_observation(int(kf_id), int(cam_id), int(kp_idx))
-        by_id[mp.id] = mp
+        return mp
+
+    by_id = {}
+    for src in points:
+        mp = by_id[int(src.id)] = copy_point(src)
         m.add_map_point(mp)
     for src in keyframes:
         kf = m.get_keyframe_by_id(int(src.keyframe_id))
         for (cam_id, kp_idx), smp in src.map_points.items():
+            if int(smp.id) not in by_id:  # a link to a landmark the map no longer holds (culled, fused)
+                by_id[int(smp.id)] = copy_point(smp)
             kf.map_points[(int(cam_id), int(kp_idx))] = by_id[int(smp.id)]
+    return m
+
+
+def _advance_ids(owner, attr: str, nxt: int) -> None:
+    """Move the id counter ``owner.attr`` to at least ``nxt``."""
+    setattr(owner, attr, itertools.count(max(next(getattr(owner, attr)), nxt)))
+
+
+def install_slam_state(slam, keyframes, points, reference_keyframe_id: int, last_frame_T, motion_model,
+                       last_keyframe_frame_id: int, last_frame_id: int, gauge_log=()) -> Map:
+    """Continue the port's ``SLAM`` facade from a snapshot of the JAX
+    facade's state, taken as numpy arrays: the map (``map_from_numpy``'s
+    keyframes and landmarks, descriptors and ids), the reference keyframe's
+    id, the last frame's pose and id, the motion model, the frame id of the
+    last keyframe and the gauge log ((s, b) per recorded similarity, so
+    ``gauge_version`` matches). The copy replaces the map in every component
+    that holds it; state becomes OK and the id counters move past the
+    copied ids. Returns the installed map."""
+    from .map.frame import Frame, FrameBase
+    from .state import State
+
+    m = map_from_numpy(keyframes, points, device=slam.device)
+    m._gauge_log = [(float(s), np.asarray(b, np.float64).reshape(3)) for s, b in gauge_log]
+    for owner in (slam, slam.tracking, slam.tracking.initializer, slam.local_mapping, slam.local_mapping.handler,
+                  slam.local_handler, slam.global_handler, slam.loop_closing):
+        if owner is not None:
+            owner.map = m
+    _advance_ids(KeyFrame, "_kf_ids", max(k.keyframe_id for k in m.get_keyframes()) + 1)
+    _advance_ids(MapPoint, "_ids", max((p.id for p in m.get_map_points()), default=-1) + 1)
+    _advance_ids(FrameBase, "_ids", max([k.id for k in m.get_keyframes()] + [int(last_frame_id)]) + 1)
+    tr = slam.tracking
+    tr.reference_keyframe = m.get_keyframe_by_id(int(reference_keyframe_id))
+    tr.last_frame = tr.current_frame = Frame(pose=Pose(_np(last_frame_T)), frame_id=int(last_frame_id))
+    tr.motion_model = np.array(_np(motion_model), np.float64)
+    tr.last_keyframe_frame_id = int(last_keyframe_frame_id)
+    tr._gauge_seen = tr._gather_gauge_version = m.gauge_version
+    tr.initializer.initialized = True
+    slam.state = State.OK
     return m

@@ -119,6 +119,21 @@ class TrackStep(nn.Module):
             n_levels=self.n_levels, scale=self.scale, grid=self.grid,
         )
 
+    def solve_pose(self, pts3d, xy_norm, pair_valid, T_pred, gen, sample_idx=None):
+        """RANSAC-PnP over the 3D-2D pairs, and a robust Gauss-Newton from the
+        predicted pose that wins where it holds more inliers. Returns
+        (T_w2c (4, 4), inliers (N,)), on the device."""
+        with record_function("ransac_pnp"):
+            res = ransac_pnp(pts3d, xy_norm, pair_valid, gen, n_hyp=self.pnp_hypotheses, thresh=self.thresh,
+                             sample_idx=sample_idx)
+        with record_function("fallback_gn"):
+            R_f, t_f = refine_pose_gn(T_pred[:3, :3], T_pred[:3, 3], pts3d, xy_norm, pair_valid.to(torch.float32),
+                                      iters=8, huber=self.thresh)
+        inl_f = (_reproj_err2(R_f, t_f, pts3d, xy_norm) < self.thresh * self.thresh) & pair_valid
+        use_fallback = inl_f.sum() > res["n_inliers"]
+        T = make_T(torch.where(use_fallback, R_f, res["R"]), torch.where(use_fallback, t_f, res["t"]))
+        return T, torch.where(use_fallback, inl_f, res["inliers"])
+
     def forward(self, state: TrackState, img: torch.Tensor) -> tuple[TrackState, TrackOutput]:
         # record_function spans name the stages in a torch.profiler trace
         # (about a microsecond each when no profiler runs).
@@ -157,24 +172,10 @@ class TrackStep(nn.Module):
         else:
             guided_idx = torch.zeros(n, dtype=torch.int64, device=img.device)
             guided_valid = torch.zeros(n, dtype=torch.bool, device=img.device)
-        with record_function("ransac_pnp"):
-            res = ransac_pnp(
-                pts3d, xy_norm, pair_valid, state.gen, n_hyp=self.pnp_hypotheses, thresh=self.thresh
-            )
-        with record_function("fallback_gn"):
-            # Motion-model fallback: robust GN from the predicted pose.
-            R_f, t_f = refine_pose_gn(
-                T_pred[:3, :3], T_pred[:3, 3], pts3d, xy_norm, pair_valid.to(torch.float32),
-                iters=8, huber=self.thresh,
-            )
-        inl_f = (_reproj_err2(R_f, t_f, pts3d, xy_norm) < self.thresh * self.thresh) & pair_valid
-        use_fallback = inl_f.sum() > res["n_inliers"]
-        R = torch.where(use_fallback, R_f, res["R"])
-        t = torch.where(use_fallback, t_f, res["t"])
-        inliers = torch.where(use_fallback, inl_f, res["inliers"])
+        T, inliers = self.solve_pose(pts3d, xy_norm, pair_valid, T_pred, state.gen)
         n_inl = inliers.sum()
         ok = n_inl >= 6
-        T_new = torch.where(ok, make_T(R, t), T_pred)
+        T_new = torch.where(ok, T, T_pred)
         T_rel = torch.where(ok, T_new @ se3_inverse(state.T_w2c), state.T_rel)
         out = TrackOutput(
             T_w2c=T_new,
@@ -197,6 +198,51 @@ def make_track_step(K, stereo: bool = False, **kwargs) -> TrackStep:
     if stereo:
         raise NotImplementedError("the stereo tracking step is not ported yet")
     return TrackStep(K, **kwargs)
+
+
+class FrameStep:
+    """The host facade's fused frame step (``trackingalgorithm.FusedMonoTracking``):
+    detect (K1) -> projection-guided association against the given landmark
+    block (K3) -> RANSAC-PnP, with a Gauss-Newton fallback from the given
+    predicted pose, on ``TrackStep``'s buffers and settings. Unlike the
+    step it takes the landmark block, the predicted pose and the generator
+    explicitly, so the host ``Tracking`` state machine drives it; keypoints
+    of a distorted camera are undistorted inside."""
+
+    def __init__(self, step: TrackStep, dist=None):
+        self.step = step
+        self.dist = None if dist is None else torch.as_tensor(np.asarray(dist, np.float32)).to(step.K.device)
+
+    def __call__(self, img, lm_pos, lm_desc, lm_valid, T_pred, gen, sample_idx=None) -> dict:
+        from .ops.projection import undistort_pixels
+
+        s = self.step
+        feats = s.detect(img)
+        if self.dist is not None:
+            feats = feats._replace(xy=undistort_pixels(s.K, s.Kinv, self.dist, feats.xy))
+        g = guided_match(lm_pos, lm_desc, lm_valid, T_pred, s.K, feats.xy, feats.desc, feats.valid, s.width,
+                         s.height, radius_px=s.guided_radius_px, ratio=s.guided_ratio)
+        pair_valid = g["valid"]
+        T, inliers = s.solve_pose(g["pts3d"], normalize_points(s.Kinv, feats.xy), pair_valid, T_pred, gen,
+                                  sample_idx=sample_idx)
+        n_inl = inliers.sum()
+        return {"features": feats, "T_w2c": T, "n_inliers": n_inl, "pair_valid": pair_valid, "lm_idx": g["lm_idx"],
+                "pnp_inliers": inliers, "ok": n_inl >= 6}
+
+
+def make_frame_step(K, width: float, height: float, num_features: int = 2000, fast_threshold: float = 20.0,
+                    n_levels: int = 4, scale: float = 1.2, grid: int = 8, pnp_hypotheses: int = 128,
+                    pnp_threshold_px: float = 3.0, guided_radius_px: float = 25.0, guided_ratio: float = 0.8,
+                    dist=None, stereo: bool = False, rgbd: bool = False, device=None) -> FrameStep:
+    """The fused host-facade frame step on ``device`` (the card unless the
+    caller asks for the CPU). The stereo and RGB-D variants belong to
+    ROADMAP M9."""
+    if stereo or rgbd:
+        raise NotImplementedError("the stereo and RGB-D frame steps are not ported yet: ROADMAP M9")
+    step = TrackStep(K, num_features=num_features, fast_threshold=fast_threshold, n_levels=n_levels, scale=scale,
+                     grid=grid, pnp_hypotheses=pnp_hypotheses, pnp_threshold_px=pnp_threshold_px, width=width,
+                     height=height, guided_radius_px=guided_radius_px, guided_ratio=guided_ratio, device=device)
+    return FrameStep(step, dist=dist)
 
 
 def _stack(items):
