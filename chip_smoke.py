@@ -10,13 +10,24 @@
    card, at the shapes its path gives it, and times both: device time by
    CUDA events over back-to-back calls, host+device wall per synchronised
    call, and the bound (bytes over the HBM rate or operations over the
-   peak) with the share of it reached.
+   peak) with the share of it reached. The batched forms of K1, K2 and K3
+   (the batched VO step's, B = 4 at the same shapes) likewise, each also
+   held at B = 1 to its one-sequence kernel.
 4. Tracking path: the fused mono tracking step with a 4096-slot local-map
    arena, 2000 features, 4 levels, 128 RANSAC hypotheses, over a rendered
    376x1240 sprite world (f = 718.856) in two chunks of 8 frames. Checks
    poses against ground truth and the kernels' launch counts, lists the host
    syncs inside one step, times single steps and chunks, and holds one frame
    against the same step run on the CPU through the plain versions.
+   Then batched VO (``parallel.make_batched_vo``, BASELINE config 5), one
+   JSON line per sub-phase: 4 sprite worlds like this one (seeds 0-3)
+   tracked 16 frames at once with the local map and without; gates: every
+   sequence as above and within R_ATOL / T_ATOL of the single step on it
+   over the first chunk, the batched K1/K2/K3 launched (1, 1, 1) / (1, 1,
+   0) times a step, at most 1.25x the single step's CUDA kernels
+   (torch.profiler) and no more host syncs. Then bench_multiseq's setup at
+   2000 and 4000 features: aggregate and single-step FPS, efficiency,
+   syncs, peak memory, busy share (recorded, no gate).
 5. Pose graphs at 256 nodes: bench_pose_graph's SE(3)
    problem and a drifted 256-node Sim(3) loop, cost checked to fall, timed
    per solve (the first solve pays torch.func's and the solver's set-up).
@@ -76,7 +87,7 @@
 
 K5 has no caller in either package: only phase 3 launches it. The
 kernels' launch counts add up the tracking, loop, full-pipeline and facade
-phases.
+phases; the batched rows' count the batched VO phase's batched steps.
 """
 from __future__ import annotations
 
@@ -145,6 +156,14 @@ FACADE_KF_ATE_PCT_MAX, FACADE_FRAME_ATE_PCT_MAX = 2.0, 3.142
 FACADE_KF_RANGE = (17, 29)
 FACADE_JUMP_PCT, FACADE_JAX_FAILED_RUNS = 5.0, 2
 ENDURANCE_JAX_CLOSURES, ENDURANCE_JAX_ON_BELOW_OFF = 0, False
+# Batched VO (parallel.make_batched_vo, BASELINE config 5): bench_multiseq's
+# 4 sequences, its 30 timed steps after one warm-up over 4 distinct batches,
+# at bench.py's 2000 features and config 5's 4000.
+MS_B, MS_STEPS, MS_BATCHES, MS_REPS = 4, 30, 4, 3
+MS_FEATURES = (2000, 4000)
+MS_PROFILE_STEPS = 4
+MS_KERNEL_RATIO_MAX = 1.25  # CUDA kernels of a batched step over a single step's
+STEP_SPANS = ("detect", "match", "guided_match", "ransac_pnp", "fallback_gn")
 
 
 def log(msg: str) -> None:
@@ -264,17 +283,18 @@ def count_syncs(torch):
             warnings.showwarning = shown
 
 
-def make_world_frames(render_mod, np):
+def make_world_frames(render_mod, np, seed: int = 0, depths: bool = False):
     """Sprite world sized like bench.synth_kitti_frames (900 sprites,
-    x -30..40 m, y -8..8 m, z 8..50 m), seen along tests/render.py's
-    forward-lateral path with slow yaw."""
-    rng = np.random.default_rng(0)
+    x -30..40 m, y -8..8 m, z 8..50 m) drawn from ``seed``, seen along
+    tests/render.py's forward-lateral path with slow yaw. Returns (K, Ts,
+    frames, z-buffer of frame 0), or every frame's z-buffer with ``depths``."""
+    rng = np.random.default_rng(seed)
     world = render_mod.make_world(rng, n_sprites=900, x_range=(-30, 40), y_range=(-8, 8), z_range=(8, 50))
     Ts = render_mod.camera_path(1 + CHUNK * N_CHUNKS, step=0.25)
     K = np.array([[FOCAL, 0, W / 2], [0, FOCAL, H / 2], [0, 0, 1.0]], np.float32)
     frames = np.stack([render_mod.render(world, T, K, W, H) for T in Ts]).astype(np.float32)
-    _, zbuf = render_mod.render_with_depth(world, Ts[0], K, W, H)
-    return K, Ts, frames, zbuf
+    zbufs = [render_mod.render_with_depth(world, T, K, W, H)[1] for T in (Ts if depths else Ts[:1])]
+    return K, Ts, frames, np.stack(zbufs) if depths else zbufs[0]
 
 
 def touched(torch, shape, yx, size=31, lo=-15):
@@ -287,6 +307,41 @@ def touched(torch, shape, yx, size=31, lo=-15):
     mask = torch.zeros(shape, dtype=torch.bool, device=yx.device)
     mask[rows[:, :, None], cols[:, None, :]] = True
     return int(mask.sum())
+
+
+def hamming_fixture(np, rng, n):
+    """K2's inputs at n x n: random 256-bit descriptors, 2n/5 near matches,
+    blocks of n/20 query ties (column argmin) and train ties (argbest,
+    second == best), ~10 % invalid queries and ~5 % invalid trains:
+    (d1, d2) uint32 words and (v1, v2) bool."""
+    d2 = rng.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32)
+    d1 = rng.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32)
+    near, ties = 2 * n // 5, n // 20  # 800 near matches and blocks of 100 ties at n = 2000
+    d1[:near] = d2[:near] ^ (rng.random((near, 8)) < 0.05).astype(np.uint32)
+    d1[near:near + ties] = d1[:ties]  # query ties (column argmin)
+    d2[n // 2:n // 2 + ties] = d2[:ties]  # train ties (argbest and second == best)
+    return d1, d2, rng.random(n) > 0.1, rng.random(n) > 0.05
+
+
+def guided_fixture(np, rng, M, n, radius):
+    """K3's inputs: an arena of M landmarks over the image with landmark
+    ties, n keypoints, each planted within 20 px of a landmark with a near
+    descriptor, ~20 % landmarks and ~5 % keypoints invalid: (lm_desc
+    int32, lm_ok, lm_uv, kp_desc int32, kp_valid, kp_xy), and the valid
+    pairs inside ``radius``."""
+    lm_uv = np.stack([rng.uniform(0, W, M), rng.uniform(0, H, M)], 1).astype(np.float32)
+    lm_desc = rng.integers(0, 2**32, (M, 8), dtype=np.uint64).astype(np.uint32)
+    lm_desc[1:M // 10:2] = lm_desc[0:M // 10 - 1:2]  # landmark ties
+    kp_xy = np.stack([rng.uniform(0, W, n), rng.uniform(0, H, n)], 1).astype(np.float32)
+    kp_desc = rng.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32)
+    for j in range(0, 2 * n, 2):
+        kp_desc[j // 2] = lm_desc[j] ^ (rng.random(8) < 0.04).astype(np.uint32)
+        kp_xy[j // 2] = lm_uv[j] + rng.uniform(-20, 20, 2)
+    lm_ok = rng.random(M) > 0.2
+    kp_valid = rng.random(n) > 0.05
+    d2g = ((lm_uv[:, None, :] - kp_xy[None, :, :]) ** 2).sum(-1)
+    in_radius = int(((d2g <= radius * radius) & lm_ok[:, None] & kp_valid[None, :]).sum())
+    return (lm_desc.view(np.int32), lm_ok, lm_uv, kp_desc.view(np.int32), kp_valid, kp_xy), in_radius
 
 
 def check_kernels(torch, np, frame, K):
@@ -343,14 +398,8 @@ def check_kernels(torch, np, frame, K):
     # K2 at 2000 x 2000 with planted ties and 10% invalid rows.
     rng = np.random.default_rng(1)
     n = N_FEATURES
-    d2 = rng.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32)
-    d1 = rng.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32)
-    near, ties = 2 * n // 5, n // 20  # 800 near matches and blocks of 100 ties at n = 2000
-    d1[:near] = d2[:near] ^ (rng.random((near, 8)) < 0.05).astype(np.uint32)
-    d1[near:near + ties] = d1[:ties]  # query ties (column argmin)
-    d2[n // 2:n // 2 + ties] = d2[:ties]  # train ties (argbest and second == best)
-    v1 = rng.random(n) > 0.1
-    v2 = rng.random(n) > 0.05
+    near, ties = 2 * n // 5, n // 20  # K4's fixture below plants as many
+    d1, d2, v1, v2 = hamming_fixture(np, rng, n)
     args = [torch.from_numpy(d1.view(np.int32)).to(dev), torch.from_numpy(d2.view(np.int32)).to(dev),
             torch.from_numpy(v1).to(dev), torch.from_numpy(v2).to(dev)]
     out = mk.hamming_top2(*args)
@@ -372,20 +421,8 @@ def check_kernels(torch, np, frame, K):
 
     # K3 at 4096 landmarks x 2000 keypoints, matches planted inside the radius.
     M = ARENA
-    lm_uv = np.stack([rng.uniform(0, W, M), rng.uniform(0, H, M)], 1).astype(np.float32)
-    lm_desc = rng.integers(0, 2**32, (M, 8), dtype=np.uint64).astype(np.uint32)
-    lm_desc[1:M // 10:2] = lm_desc[0:M // 10 - 1:2]  # landmark ties
-    kp_xy = np.stack([rng.uniform(0, W, n), rng.uniform(0, H, n)], 1).astype(np.float32)
-    kp_desc = rng.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32)
-    for j in range(0, 2 * n, 2):
-        kp_desc[j // 2] = lm_desc[j] ^ (rng.random(8) < 0.04).astype(np.uint32)
-        kp_xy[j // 2] = lm_uv[j] + rng.uniform(-20, 20, 2)
-    lm_ok = rng.random(M) > 0.2
-    kp_valid = rng.random(n) > 0.05
-    r2 = 25.0 * 25.0
-    args = [torch.from_numpy(lm_desc.view(np.int32)).to(dev), torch.from_numpy(lm_ok).to(dev),
-            torch.from_numpy(lm_uv).to(dev), torch.from_numpy(kp_desc.view(np.int32)).to(dev),
-            torch.from_numpy(kp_valid).to(dev), torch.from_numpy(kp_xy).to(dev), torch.tensor(r2, device=dev)]
+    fixture, in_radius = guided_fixture(np, rng, M, n, 25.0)
+    args = [torch.from_numpy(a).to(dev) for a in fixture] + [torch.tensor(25.0 * 25.0, device=dev)]
     lm_idx, valid = mk.guided_top2(*args)
     r_idx, r_valid = mk.guided_top2_ref(*args)
     torch.cuda.synchronize()
@@ -396,8 +433,6 @@ def check_kernels(torch, np, frame, K):
     # Operations: M*K gate tests at 5 fp32 operations, and the Hamming
     # distance of each valid pair inside the radius as a bit product, 2*256
     # int8 multiply-adds on the tensor cores.
-    d2g = ((lm_uv[:, None, :] - kp_xy[None, :, :]) ** 2).sum(-1)
-    in_radius = int(((d2g <= r2) & lm_ok[:, None] & kp_valid[None, :]).sum())
     log(f"K3 {M}x{n}: exact ({int(r_valid.sum())} keypoints matched, {in_radius} valid pairs inside the radius)")
     rows.append(kernel_row(
         "guided_top2", "visual_slam_tpu_torch/csrc/guided_top2.cu", "visual_slam_tpu/ops/pallas_kernels.py:250",
@@ -469,22 +504,135 @@ def check_kernels(torch, np, frame, K):
     return rows
 
 
+def check_batched_kernels(torch, np, frames):
+    """The batched forms of K1, K2 and K3 (the batched VO step's) against
+    their plain versions on the card at B = MS_B and the main path's shapes,
+    each also at B = 1 against its one-sequence kernel, then timed
+    (``kernel_row``); returns their rows of the kernels JSON."""
+    from visual_slam_tpu_torch.ops import match_kernels as mk
+    from visual_slam_tpu_torch.ops import orb, pyramid
+    from visual_slam_tpu_torch.ops.detector import detect_level, level_quotas
+    from visual_slam_tpu_torch.ops.patch_kernels import (
+        patches_and_moments_batched,
+        patches_and_moments_batched_ref,
+        patches_and_moments_levels,
+    )
+
+    dev = torch.device("cuda")
+    rows = []
+    Bn = len(frames)
+
+    # K1 on the four levels of MS_B rendered frames, stacked as the batched
+    # detect stacks them: one launch for all frames and levels.
+    imgs = torch.from_numpy(np.stack(frames)).to(dev)
+    w = torch.from_numpy(orb.MOMENT_W_NP).to(dev)
+    levels = [lvl.contiguous() for lvl in pyramid.build_pyramid(imgs, N_LEVELS, 1.2)]
+    yxs = [detect_level(lvl, k, 20.0, GRID, 16)[0] for lvl, k in zip(levels, level_quotas(N_FEATURES, N_LEVELS, 1.2))]
+    args = (levels, [pyramid.gaussian_blur(lvl) for lvl in levels], yxs, w)
+    mom, pat = patches_and_moments_batched(*args)
+    mom_r, pat_r = patches_and_moments_batched_ref(*args)
+    one = patches_and_moments_levels(*[[x[0] for x in a] for a in args[:3]], w)
+    b1 = patches_and_moments_batched(*[[x[:1] for x in a] for a in args[:3]], w)
+    torch.cuda.synchronize()
+    if not torch.equal(pat, pat_r):
+        raise AssertionError("batched K1: patches differ from the plain version")
+    raw = torch.stack([torch.cat([orb.extract_patches(lvl[b], yx[b]) for lvl, yx in zip(levels, yxs)])
+                       for b in range(Bn)])
+    scale = raw.reshape(*raw.shape[:2], -1).abs().double() @ w.abs().double()
+    diff = (mom - mom_r).abs().double()
+    if not bool((diff <= MOMENT_RTOL * scale).all()):
+        raise AssertionError(f"batched K1: moments off by {float(diff.max())} (tolerance {MOMENT_RTOL} of sum |w*p|)")
+    if not (torch.equal(b1[0][0], one[0]) and torch.equal(b1[1][0], one[1])):
+        raise AssertionError("batched K1 at B = 1 differs from the one-frame kernel")
+    err = float(diff.max())
+    n_kp = Bn * sum(int(yx.shape[1]) for yx in yxs)
+    log(f"batched K1 B={Bn} levels {[tuple(lvl.shape) for lvl in levels]}, one launch: patches exact, moments max abs "
+        f"err {err}; B = 1 equals the one-frame kernel bit for bit")
+    k1_bytes = (sum(2 * 4 * touched(torch, tuple(lvl.shape[1:]), yx[b]) for lvl, yx in zip(levels, yxs)
+                    for b in range(Bn)) + n_kp * (8 + 961 * 4 + 8))
+    rows.append(kernel_row(
+        "patches_and_moments_batched", "visual_slam_tpu_torch/csrc/patches_moments.cu",
+        "visual_slam_tpu/ops/pallas_patches.py:144",
+        lambda: patches_and_moments_batched(*args), lambda: patches_and_moments_batched_ref(*args), err,
+        bound(k1_bytes, {"fp32": n_kp * 2 * int(np.count_nonzero(orb.MOMENT_W_NP))}),
+        library_note="no single PyTorch call gives the disk-masked moments and the windows together"))
+
+    # K2 paired: MS_B pairs at 2000 x 2000, each with planted near matches,
+    # row and column ties and ~10% invalid rows, as check_kernels' K2.
+    rng = np.random.default_rng(21)
+    n = N_FEATURES
+    d1, d2, v1, v2 = (np.stack(a) for a in zip(*[hamming_fixture(np, rng, n) for _ in range(Bn)]))
+    args = [torch.from_numpy(a).to(dev) for a in (d1.view(np.int32), d2.view(np.int32), v1, v2)]
+    out = mk.hamming_top2_paired(*args)
+    ref = mk.hamming_top2_paired_ref(*args)
+    one = mk.hamming_top2(*[a[0] for a in args])
+    b1 = mk.hamming_top2_paired(*[a[:1] for a in args])
+    torch.cuda.synchronize()
+    for name, a, b in zip(("best", "second", "argbest", "col_argmin"), out, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(f"paired K2: {name} differs from the plain version")
+    if not all(torch.equal(a[0], b) for a, b in zip(b1, one)):
+        raise AssertionError("paired K2 at B = 1 differs from the one-pair kernel")
+    log(f"paired K2 B={Bn} x {n}x{n}: exact; B = 1 equals the one-pair kernel")
+    pairs = int((v1.sum(1) * v2.sum(1)).sum())
+    rows.append(kernel_row(
+        "hamming_top2_paired", "visual_slam_tpu_torch/csrc/hamming_top2.cu", "visual_slam_tpu/ops/pallas_kernels.py:99",
+        lambda: mk.hamming_top2_paired(*args), lambda: mk.hamming_top2_paired_ref(*args), 0.0,
+        bound(Bn * (2 * n * 33 + n * 12 + n * 4), {"int8_tc": 2 * 256 * pairs}),
+        library_note="no single PyTorch call gives the top-2, the argbest and the column argmin"))
+
+    # K3 batched: MS_B arenas of 4096 against 2000 keypoints each, matches
+    # planted inside the radius, a radius per sequence (the step widens it
+    # with each sequence's own rotation, 25 to 100 px).
+    M = ARENA
+    radii = np.array([25.0, 25.0, 40.0, 60.0][:Bn] + [25.0] * max(0, Bn - 4), np.float32)
+    fixtures, pairs = zip(*[guided_fixture(np, rng, M, n, r) for r in radii])
+    in_radius = sum(pairs)
+    args = [torch.from_numpy(np.stack(a)).to(dev) for a in zip(*fixtures)] + [torch.from_numpy(radii ** 2).to(dev)]
+    lm_idx, valid = mk.guided_top2_batched(*args)
+    r_idx, r_valid = mk.guided_top2_batched_ref(*args)
+    one = mk.guided_top2(*[a[0] for a in args])
+    b1 = mk.guided_top2_batched(*[a[:1] for a in args])
+    torch.cuda.synchronize()
+    if not (torch.equal(valid, r_valid) and torch.equal(lm_idx, r_idx)):
+        raise AssertionError("batched K3: lm_idx/valid differ from the plain version")
+    if not (torch.equal(b1[0][0], one[0]) and torch.equal(b1[1][0], one[1])):
+        raise AssertionError("batched K3 at B = 1 differs from the one-arena kernel")
+    if int(r_valid.sum()) < Bn * n // 10:
+        raise AssertionError(f"batched K3 fixture matched only {int(r_valid.sum())} keypoints")
+    log(f"batched K3 B={Bn} x {M}x{n}, radii {radii.tolist()} px: exact ({int(r_valid.sum())} keypoints matched, "
+        f"{in_radius} valid pairs inside the radii); B = 1 equals the one-arena kernel")
+    rows.append(kernel_row(
+        "guided_top2_batched", "visual_slam_tpu_torch/csrc/guided_top2.cu", "visual_slam_tpu/ops/pallas_kernels.py:250",
+        lambda: mk.guided_top2_batched(*args), lambda: mk.guided_top2_batched_ref(*args), 0.0,
+        bound(Bn * ((M + n) * (32 + 1 + 8) + 4 + n * 5), {"fp32": Bn * M * n * 5, "int8_tc": in_radius * 2 * 256}),
+        library_note="no single PyTorch call gives the gated top-2 and the per-keypoint landmark argmin"))
+    return rows
+
+
+def zbuf_landmarks(np, xy, valid, zbuf, K, T_w2c=None):
+    """Landmarks of the valid keypoints ``xy`` (N, 2) that the z-buffer
+    sees, in the world frame of the camera pose ``T_w2c`` (frame 0's
+    camera frame when None): (N, 3) f32 and (N,) bool."""
+    Kinv = np.linalg.inv(K)
+    lm = np.zeros((len(xy), 3), np.float32)
+    has = np.zeros(len(xy), bool)
+    for i in np.nonzero(valid)[0]:
+        u, v = int(round(xy[i, 0])), int(round(xy[i, 1]))
+        if 0 <= u < W and 0 <= v < H and zbuf[v, u] > 0.5:
+            X = (Kinv @ np.array([xy[i, 0], xy[i, 1], 1.0])) * zbuf[v, u]
+            lm[i] = X if T_w2c is None else T_w2c[:3, :3].T @ (X - T_w2c[:3, 3])
+            has[i] = True
+    return lm, has
+
+
 def initial_state(torch, np, step, frame0, zbuf, K, device):
     """Frame-0 keypoints get landmarks from the z-buffer; the same
     landmarks fill the first slots of the 4096-slot arena."""
     from visual_slam_tpu_torch import pipeline
 
     feats = step.detect(torch.from_numpy(frame0).to(device))
-    xy = feats.xy.cpu().numpy()
-    valid = feats.valid.cpu().numpy()
-    Kinv = np.linalg.inv(K)
-    lm = np.zeros((N_FEATURES, 3), np.float32)
-    has = np.zeros(N_FEATURES, bool)
-    for i in np.nonzero(valid)[0]:
-        u, v = int(round(xy[i, 0])), int(round(xy[i, 1]))
-        if 0 <= u < W and 0 <= v < H and zbuf[v, u] > 0.5:
-            lm[i] = (Kinv @ np.array([xy[i, 0], xy[i, 1], 1.0])) * zbuf[v, u]
-            has[i] = True
+    lm, has = zbuf_landmarks(np, feats.xy.cpu().numpy(), feats.valid.cpu().numpy(), zbuf, K)
     lm_pos = np.zeros((ARENA, 3), np.float32)
     lm_desc = np.zeros((ARENA, 8), np.int32)
     lm_valid = np.zeros(ARENA, bool)
@@ -495,6 +643,263 @@ def initial_state(torch, np, step, frame0, zbuf, K, device):
         return pipeline.set_local_map(s, lm_pos, lm_desc, lm_valid)
 
     return make, int(has.sum())
+
+
+def profile_calls(torch, fn, n: int) -> dict:
+    """fn() n times under torch.profiler, after one call outside it: CUDA
+    kernels per call (memory copies and sets apart), the device busy share
+    (the union of the device events' intervals, leaving out the
+    ``record_function`` ranges, which also appear on the device and cover
+    its idle gaps, over the span of all events), busy ms per call, and the
+    host ms per call inside each span of ``STEP_SPANS``. The profiler
+    slows the host (about 3x on the full pipeline), so the share under it
+    is lower than without it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    on_dev = [e for e in events if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    kernels = [e for e in on_dev if not e.name.startswith(("Memcpy", "Memset"))]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in on_dev):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    span = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
+    host = collections.Counter()
+    for e in events:
+        if e.name in STEP_SPANS and e.device_type == DeviceType.CPU:
+            host[e.name] += (e.time_range.end - e.time_range.start) / 1e3 / n
+    return dict(kernels_per_call=len(kernels) / n, busy_share=busy / span, busy_ms_per_call=busy / 1e3 / n,
+                window_ms_per_call=span / 1e3 / n, host_span_ms_per_call={k: round(v, 3) for k, v in host.items()})
+
+
+def cycling(step, state, frames):
+    """A call that advances ``state`` by one step over the next of
+    ``frames``, round and round."""
+    hold = {"state": state, "i": 0}
+
+    def call():
+        hold["state"], _ = step(hold["state"], frames[hold["i"] % len(frames)])
+        hold["i"] += 1
+
+    return call
+
+
+def step_costs(torch, calls: dict, n: int) -> dict:
+    """For each named call: ``profile_calls``' figures over n calls and the
+    host syncs of one more call by source line."""
+    res = {}
+    for name, call in calls.items():
+        res[name] = profile_calls(torch, call, n)
+        torch.cuda.synchronize()
+        with count_syncs(torch) as syncs:
+            call()
+        torch.cuda.synchronize()
+        res[name]["syncs"] = dict(syncs.most_common())
+    return res
+
+
+def timed_fps(step, state, frames, n_seq: int) -> float:
+    """bench_multiseq's timing: one warm-up step on frames[0], then
+    MS_STEPS steps cycling through ``frames`` with a value fetch from the
+    last inside the window; frames per second over ``n_seq`` sequences."""
+    state, out = step(state, frames[0])
+    float(out.T_w2c.flatten()[0])
+    t0 = time.perf_counter()
+    for i in range(MS_STEPS):
+        state, out = step(state, frames[i % len(frames)])
+    float(out.T_w2c.flatten()[0])
+    return n_seq * MS_STEPS / (time.perf_counter() - t0)
+
+
+def run_multiseq(torch, np, dev, render_mod) -> list[int]:
+    """The batched VO step (``parallel.make_batched_vo``), B = MS_B:
+    1. tracking: MS_B sprite worlds (``make_world_frames`` at seeds 0 to
+       MS_B - 1, each with its own z-buffer start state and RANSAC seed b)
+       tracked for 16 frames with the local map and without. Without it
+       the step holds only a fixed reference block and, like the JAX
+       step, loses frame 0's after about 5 frames of this path (world 0:
+       534, 55, 2 inliers on frames 1, 5, 6); so there each frame's
+       features become the next reference, with landmarks from its
+       z-buffer at the ground-truth pose, as frame 0's. Every sequence
+       keeps the tracking phase's gates (MIN_INLIERS; R_ATOL / T_ATOL on the
+       first chunk) and stays within R_ATOL / T_ATOL of the single step on
+       the same sequence with the same seed over the same first chunk
+       (after it, each trajectory drifts from ground truth on its own, and
+       both drifts are printed); each batched step launches the
+       batched K1, K2 and K3 (1, 1, 1) times with the local map and (1, 1,
+       0) without, and the one-sequence wrappers never; under
+       torch.profiler a batched step runs at most MS_KERNEL_RATIO_MAX times
+       a single step's CUDA kernels, and it has no more host syncs.
+    2. throughput, no gate: bench_multiseq's setup (``synth_kitti_frames()``,
+       depths drawn in 8-40 m, generator seed s for sequence s, MS_BATCHES
+       distinct batches cycled, one warm-up, MS_STEPS timed steps ending in
+       a value fetch from the last) at each of MS_FEATURES: aggregate FPS
+       and the single step's on the same frames (MS_REPS reps, in turns),
+       the efficiency, host syncs per step by source line, peak memory, the
+       device busy share and the host time by stage under the profiler.
+    Prints one JSON line per sub-phase; returns the batched K1, K2 and K3
+    launches over the phase's batched steps."""
+    import bench
+
+    from visual_slam_tpu_torch import pipeline
+    from visual_slam_tpu_torch.ops import match_kernels as mk
+    from visual_slam_tpu_torch.ops.patch_kernels import patches_and_moments_batched, patches_and_moments_levels
+    from visual_slam_tpu_torch.parallel import make_batched_vo
+
+    batched = (patches_and_moments_batched, mk.hamming_top2_paired, mk.guided_top2_batched)
+    single = (patches_and_moments_levels, mk.hamming_top2, mk.guided_top2)
+    total = [0, 0, 0]
+    t0 = time.perf_counter()
+    worlds = [make_world_frames(render_mod, np, seed=s, depths=True) for s in range(MS_B)]
+    K = worlds[0][0]
+    n_frames = CHUNK * N_CHUNKS
+    imgs = torch.from_numpy(np.stack([w[2][1:] for w in worlds], axis=1)).to(dev)  # (frames, B, H, W)
+    log(f"multiseq worlds: {MS_B} x {n_frames + 1} frames {imgs.shape[2:]} in {time.perf_counter() - t0:.2f} s")
+    for local_map in (True, False):
+        kw = dict(num_features=N_FEATURES, n_levels=N_LEVELS, grid=GRID, pnp_hypotheses=N_HYP, local_map=local_map,
+                  width=W, height=H)
+        bstep = make_batched_vo(K, device=dev, **kw)
+        step = pipeline.make_track_step(K, device=dev, **kw)
+        makers = [initial_state(torch, np, step, w[2][0], w[3][0], K, dev)[0] for w in worlds]
+
+        def refresh(state, feats, i, b=None):
+            """Without the local map the step tracks against its reference
+            alone and never promotes: the reference becomes frame i + 1
+            (this step's), its landmarks from that frame's z-buffer at the
+            ground-truth pose, for one sequence b or for all."""
+            if local_map:
+                return state
+            seqs = range(MS_B) if b is None else [b]
+            xy = feats.xy.cpu().numpy().reshape(len(seqs), -1, 2)
+            valid = feats.valid.cpu().numpy().reshape(len(seqs), -1)
+            lms = [zbuf_landmarks(np, xy[j], valid[j], worlds[s][3][i + 1], K, worlds[s][1][i + 1])
+                   for j, s in enumerate(seqs)]
+            lm, has = (np.stack(x) for x in zip(*lms))
+            return pipeline.swap_reference(state, feats, lm if b is None else lm[0], has if b is None else has[0])
+
+        def stacked():
+            return pipeline.stack_track_states([make(seed=b) for b, make in enumerate(makers)])
+
+        torch.cuda.synchronize()
+        for fn in batched + single:
+            fn.launches = 0
+        st, outs = stacked(), []
+        for i in range(n_frames):
+            st, o = bstep(st, imgs[i])
+            st = refresh(st, o.features, i)
+            outs.append(o)
+        torch.cuda.synchronize()
+        launches = [fn.launches for fn in batched]
+        single_launches = [fn.launches for fn in single]
+        total = [a + b for a, b in zip(total, launches)]
+        T_b = torch.stack([o.T_w2c for o in outs], 1).cpu().numpy()  # (B, frames, 4, 4)
+        n_inl = torch.stack([o.n_inliers for o in outs], 1).cpu().numpy()
+        n_guided = torch.stack([o.guided_valid.sum(-1) for o in outs], 1).cpu().numpy()
+        T_s = []
+        for b, make in enumerate(makers):
+            ss, Ts_b = make(seed=b), []
+            for i in range(n_frames):
+                ss, o = step(ss, imgs[i, b])
+                ss = refresh(ss, o.features, i, b)
+                Ts_b.append(o.T_w2c)
+            T_s.append(torch.stack(Ts_b).cpu().numpy())
+        T_s = np.stack(T_s)
+        gt = np.stack([w[1][1:] for w in worlds])
+        err_R = np.abs(T_b[:, :CHUNK, :3, :3] - gt[:, :CHUNK, :3, :3]).max(axis=(1, 2, 3))
+        err_t = np.abs(T_b[:, :CHUNK, :3, 3] - gt[:, :CHUNK, :3, 3]).max(axis=(1, 2))
+        # Against the single step on the first chunk, the tracking gates'
+        # window; over all 16 frames both trajectories drift apart from
+        # ground truth on their own (recorded).
+        d_R = np.abs(T_b[:, :CHUNK, :3, :3] - T_s[:, :CHUNK, :3, :3]).max(axis=(1, 2, 3))
+        d_t = np.abs(T_b[:, :CHUNK, :3, 3] - T_s[:, :CHUNK, :3, 3]).max(axis=(1, 2))
+        d_t_all = np.abs(T_b[..., :3, 3] - T_s[..., :3, 3]).max(axis=(1, 2))
+        gt_t_all = {name: np.abs(T[..., :3, 3] - gt[..., :3, 3]).max(axis=(1, 2)).tolist()
+                    for name, T in (("batched", T_b), ("single", T_s))}
+
+        # Kernels per step and host syncs, batched against single (sequence 0).
+        costs = step_costs(torch, {"batched": cycling(bstep, stacked(), imgs),
+                                   "single": cycling(step, makers[0](seed=0), imgs[:, 0])}, MS_PROFILE_STEPS)
+        prof_b, prof_s = costs["batched"], costs["single"]
+        n_sync_b, n_sync_s = sum(prof_b["syncs"].values()), sum(prof_s["syncs"].values())
+        ratio = prof_b["kernels_per_call"] / prof_s["kernels_per_call"]
+        rep = dict(phase="multiseq_track", local_map=local_map, B=MS_B, frames=n_frames,
+                   min_inliers=n_inl.min(axis=1).tolist(), min_guided=n_guided.min(axis=1).tolist(),
+                   first_chunk_err_R=err_R.tolist(), first_chunk_err_t=err_t.tolist(),
+                   vs_single_dR=d_R.tolist(), vs_single_dt=d_t.tolist(), vs_single_dt_all_frames=d_t_all.tolist(),
+                   err_t_all_frames=gt_t_all,
+                   launches_K1_K2_K3=launches, launches_one_sequence_wrappers=single_launches,
+                   kernels_per_step={"batched": prof_b["kernels_per_call"], "single": prof_s["kernels_per_call"],
+                                     "ratio": ratio},
+                   busy_share_profiled={"batched": prof_b["busy_share"], "single": prof_s["busy_share"]},
+                   syncs_per_step={"batched": n_sync_b, "single": n_sync_s}, syncs_by_line_batched=prof_b["syncs"])
+        log(json.dumps(rep))
+        expected = [n_frames, n_frames, n_frames if local_map else 0]
+        if launches != expected or single_launches != [0, 0, 0]:
+            raise AssertionError(f"multiseq (local_map={local_map}): batched launches {launches} != {expected} or "
+                                 f"one-sequence launches {single_launches} != 0")
+        if not np.isfinite(T_b).all() or (n_inl < MIN_INLIERS).any():
+            raise AssertionError(f"multiseq (local_map={local_map}): non-finite poses or frames below {MIN_INLIERS} "
+                                 f"inliers: {n_inl.min(axis=1).tolist()}")
+        if (err_R > R_ATOL).any() or (err_t > T_ATOL).any():
+            raise AssertionError(f"multiseq (local_map={local_map}): first chunk off ground truth: R {err_R} t {err_t}")
+        if (d_R > R_ATOL).any() or (d_t > T_ATOL).any():
+            raise AssertionError(f"multiseq (local_map={local_map}): first chunk's batched poses off the single "
+                                 f"steps: R {d_R} t {d_t}")
+        if ratio > MS_KERNEL_RATIO_MAX:
+            raise AssertionError(f"multiseq (local_map={local_map}): {prof_b['kernels_per_call']} CUDA kernels a "
+                                 f"batched step, {ratio:.3f} x the single step's {prof_s['kernels_per_call']}")
+        if n_sync_b > n_sync_s:
+            raise AssertionError(f"multiseq (local_map={local_map}): {prof_b['syncs']} host syncs a batched step, "
+                                 f"more than the single step's {prof_s['syncs']}")
+
+    # Throughput: bench_multiseq's setup through the port.
+    frames, K_np, _ = bench.synth_kitti_frames()
+    Kinv = np.linalg.inv(K_np)
+    batches = [torch.from_numpy(np.stack([frames[(s + i) % len(frames)] for s in range(MS_B)])).to(dev)
+               for i in range(MS_BATCHES)]
+    for nf in MS_FEATURES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bstep = make_batched_vo(K_np, device=dev, num_features=nf, n_levels=4)
+        step = pipeline.make_track_step(K_np, device=dev, num_features=nf, n_levels=4)
+        rng = np.random.default_rng(7)
+        starts = []
+        for s in range(MS_B):
+            feats0 = step.detect(torch.from_numpy(frames[s % len(frames)]).to(dev))
+            xy = feats0.xy.cpu().numpy()
+            z = rng.uniform(8, 40, nf).astype(np.float32)
+            rays = np.concatenate([xy, np.ones((nf, 1), np.float32)], 1) @ Kinv.T
+            starts.append((feats0, (rays * z[:, None]).astype(np.float32)))
+
+        def state(s):
+            return pipeline.init_track_state(starts[s][0], starts[s][1], starts[s][0].valid, np.eye(4), seed=s,
+                                             device=dev)
+
+        def batched_state():
+            return pipeline.stack_track_states([state(s) for s in range(MS_B)])
+
+        singles = [b[0] for b in batches]  # sequence 0's frames
+        fps = {"batched": [], "single": []}
+        for _ in range(MS_REPS):
+            fps["batched"].append(timed_fps(bstep, batched_state(), batches, MS_B))
+            fps["single"].append(timed_fps(step, state(0), singles, 1))
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        costs = step_costs(torch, {"batched": cycling(bstep, batched_state(), batches),
+                                   "single": cycling(step, state(0), singles)}, 2 * MS_BATCHES)
+        agg, one = statistics.median(fps["batched"]), statistics.median(fps["single"])
+        rep = dict(phase="multiseq_throughput", features=nf, B=MS_B, steps=MS_STEPS,
+                   agg_fps_median=agg, agg_fps_min=min(fps["batched"]), single_fps_median=one,
+                   single_fps_min=min(fps["single"]), efficiency=agg / (MS_B * one),
+                   agg_fps_reps=fps["batched"], single_fps_reps=fps["single"], peak_mib=peak, profiled=costs)
+        log(json.dumps(rep))
+    return total
 
 
 def run_loop_path(torch, np, step, dev, counters):
@@ -1230,7 +1635,7 @@ def main() -> int:
     K, Ts, frames, zbuf = make_world_frames(render_mod, np)
     log(f"rendered {len(frames)} frames {frames.shape[1:]} in {time.perf_counter() - t0:.2f} s")
 
-    rows = check_kernels(torch, np, frames[1], K)
+    rows = check_kernels(torch, np, frames[1], K) + check_batched_kernels(torch, np, list(frames[1:1 + MS_B]))
 
     dev = torch.device("cuda")
     kw = dict(num_features=N_FEATURES, n_levels=N_LEVELS, grid=GRID, pnp_hypotheses=N_HYP,
@@ -1318,6 +1723,9 @@ def main() -> int:
         raise AssertionError("CUDA step disagrees with the CPU step on frame 1")
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
+    # The batched VO step: MS_B sequences in one step, counted on its own.
+    multiseq_launches = run_multiseq(torch, np, dev, render_mod)
+
     # The pose graphs (whose first solve pays the one-time set-up of
     # torch.func and the solver), then the loop path, counted on its own.
     run_pose_graphs(torch, np, dev)
@@ -1327,8 +1735,11 @@ def main() -> int:
     parts = list(zip(launches, loop_launches, fp_launches, facade_launches))
     for row, part in zip(rows, parts):
         row["launches"] = sum(part)
+    for row, n in zip(rows[len(parts):], multiseq_launches):
+        row["launches"] = n
     log("launches per kernel (tracking, loop path, full pipeline, facade phases): "
-        f"{[(r['name'], *part) for r, part in zip(rows, parts)]}; K5 has no caller on any path")
+        f"{[(r['name'], *part) for r, part in zip(rows, parts)]}; K5 has no caller on any path; batched "
+        f"(multiseq phase): {[(r['name'], r['launches']) for r in rows[len(parts):]]}")
 
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

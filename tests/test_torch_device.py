@@ -13,7 +13,8 @@ from visual_slam_tpu_torch.handlers import GlobalHandler, LocalHandler
 from visual_slam_tpu_torch.io import DataSourceBase
 from visual_slam_tpu_torch.local_mapping import LocalMapping
 from visual_slam_tpu_torch.map import Map
-from visual_slam_tpu_torch.models import CompiledSLAM
+from visual_slam_tpu_torch.models import BatchedVO, CompiledSLAM, CompiledVO, MonoVO
+from visual_slam_tpu_torch.parallel import make_batched_vo
 from visual_slam_tpu_torch.pipeline import make_frame_step, make_track_step
 from visual_slam_tpu_torch.processing import Processing
 from visual_slam_tpu_torch.slam import SLAM
@@ -52,6 +53,10 @@ ENTRY_POINTS = {
     "GlobalHandler": lambda **kw: GlobalHandler(Map(), None, _cam(), Config(), **kw),
     "Processing": lambda **kw: Processing(_Blank(), None, Config(), **kw),
     "make_frame_step": lambda **kw: make_frame_step(K, 320.0, 240.0, num_features=64, **kw),
+    "make_batched_vo": lambda **kw: make_batched_vo(K, num_features=64, **kw),
+    "BatchedVO": lambda **kw: BatchedVO(K, num_features=64, **kw),
+    "CompiledVO": lambda **kw: CompiledVO(K, num_features=64, **kw),
+    "MonoVO": lambda **kw: MonoVO(_cam(), num_features=64, **kw),
 }
 
 

@@ -1,6 +1,7 @@
 """Kernels K1-K5 of the torch port: each plain version against the JAX
 package (XLA path and Pallas interpret mode) on the CPU, and each CUDA
-kernel against its plain version on the card (marked ``cuda``).
+kernel against its plain version on the card (marked ``cuda``), the
+batched forms of K1-K3 (the batched VO step) included.
 
 The JAX package is imported inside the tests that need it, so the card's
 tests also run where only PyTorch is installed:
@@ -15,6 +16,8 @@ from visual_slam_tpu_torch.ops import orb as torb
 from visual_slam_tpu_torch.ops.patch_kernels import (
     extract_patches32,
     extract_patches32_ref,
+    patches_and_moments_batched,
+    patches_and_moments_batched_ref,
     patches_and_moments_levels,
     patches_and_moments_levels_ref,
     patches_and_moments_ref,
@@ -589,3 +592,118 @@ def test_track_step_cuda_matches_cpu(cuda):
         np.testing.assert_allclose(T_g[:3, 3], T_c[:3, 3], atol=0.06)
     assert (patches_and_moments_levels.launches - counts[0], mk.hamming_top2.launches - counts[1],
             mk.guided_top2.launches - counts[2]) == (2, 2, 2)
+
+
+# --- batched K1, K2, K3 (the batched VO step) on the card --------------------
+
+
+def _stacked(cuda, frames):
+    """B frames' levels, each a (raw, blur, yx) triple -> (raws, blurs, yxs),
+    each a list over the levels of the B frames' arrays stacked on a leading
+    B."""
+    per_level = [[torch.from_numpy(np.stack(a)).to(cuda) for a in zip(*lv)] for lv in zip(*frames)]
+    return [list(x) for x in zip(*per_level)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["main_path_b4", "past_16_entries_b8"])
+def test_patches_moments_batched_kernel_matches_ref(cuda, case):
+    """B frames of every level in one launch: four main-path levels (643,
+    537, 447 and 373 keypoints) at B = 4, and the edge fixture (a level
+    without keypoints, centres at -1 and H / W) at B = 8, 32 level entries
+    where the one-frame table holds 16; frame 0's keypoints all lie on
+    padding slots past the image. Patches exact, moments within 1e-5 of sum
+    |w * p|."""
+    rng = np.random.default_rng(41 if case == "main_path_b4" else 42)
+    w = torch.from_numpy(torb.MOMENT_W_NP).to(cuda)
+    B = 4 if case == "main_path_b4" else 8
+    shapes = ((376, 1240), (313, 1033), (261, 861), (218, 718))
+    frames = []
+    for b in range(B):
+        if case == "main_path_b4":
+            lv = [_image_and_keypoints(rng, H=h, W=wd, K=k) for (h, wd), k in zip(shapes, (643, 537, 447, 373))]
+            frames.append([(r, bl, yx) for r, bl, yx in lv])
+        else:
+            raws, blurs, yxs = _pyramid_fixture(rng)
+            frames.append(list(zip(raws, blurs, yxs)))
+    for lvl in frames[0]:  # frame 0: padding slots only
+        Hl, Wl = lvl[0].shape
+        lvl[2][:] = np.array([[-1, Wl], [Hl, -1]], np.int32)[np.arange(len(lvl[2])) % 2]
+    raws, blurs, yxs = _stacked(cuda, frames)
+    before = patches_and_moments_batched.launches
+    mom, pat = patches_and_moments_batched(raws, blurs, yxs, w)
+    torch.cuda.synchronize()
+    assert patches_and_moments_batched.launches == before + 1
+    mom_r, pat_r = patches_and_moments_batched_ref(raws, blurs, yxs, w)
+    assert pat.shape == (B, sum(int(y.shape[1]) for y in yxs), 31, 31)
+    assert torch.equal(pat, pat_r)
+    raw_p = torch.stack([torch.cat([torb.extract_patches(r[b], y[b]) for r, y in zip(raws, yxs)]) for b in range(B)])
+    tol = 1e-5 * _moment_scale(raw_p.reshape(-1, 31, 31).cpu().numpy()).reshape(B, -1, 2)
+    assert (np.abs((mom - mom_r).cpu().numpy()) <= tol).all()
+
+
+@pytest.mark.cuda
+def test_patches_moments_batched_b1_equals_unbatched(cuda):
+    """B = 1 is the one-frame kernel: moments and patches bit for bit."""
+    rng = np.random.default_rng(43)
+    w = torch.from_numpy(torb.MOMENT_W_NP).to(cuda)
+    raws, blurs, yxs = [[torch.from_numpy(a).to(cuda) for a in xs] for xs in _pyramid_fixture(rng)]
+    one = patches_and_moments_levels(raws, blurs, yxs, w)
+    batched = patches_and_moments_batched([r[None] for r in raws], [b[None] for b in blurs], [y[None] for y in yxs], w)
+    torch.cuda.synchronize()
+    assert torch.equal(batched[0][0], one[0]) and torch.equal(batched[1][0], one[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k1,k2", [(2000, 2000), (130, 1), (65, 200)])
+def test_hamming_top2_paired_kernel_matches_ref(cuda, k1, k2):
+    """B = 4 query blocks, each against its own train block, in one launch
+    pair: the main path's 2000 x 2000, one train column per sequence (no
+    second: +inf) and sizes off the tile edges; sequence 1 has no valid
+    query. Exact against the plain version, ties included."""
+    rng = np.random.default_rng(k1 + 3 * k2)
+    fx = [_tile_fixture(rng, k1, k2) for _ in range(4)]
+    d1, d2, v1, v2 = (np.stack(a) for a in zip(*fx))
+    v1[1] = False
+    args = [_i32(d1).to(cuda), _i32(d2).to(cuda), torch.from_numpy(v1).to(cuda), torch.from_numpy(v2).to(cuda)]
+    before = mk.hamming_top2_paired.launches
+    out = mk.hamming_top2_paired(*args)
+    torch.cuda.synchronize()
+    assert mk.hamming_top2_paired.launches == before + 1
+    ref = mk.hamming_top2_paired_ref(*args)
+    for a, b in zip(out, ref):
+        assert a.shape[0] == 4 and torch.equal(a, b)
+    assert (out[0][1] == mk.BIG).all() and (out[2][1] == 0).all()
+    if k2 == 1:
+        assert torch.isinf(out[1][0]).all()
+    one = mk.hamming_top2(*[a[2] for a in args])
+    paired = mk.hamming_top2_paired(*[a[2:3] for a in args])
+    assert all(torch.equal(p[0], o) for p, o in zip(paired, one))  # B = 1 is the one-pair kernel
+
+
+@pytest.mark.cuda
+def test_guided_top2_batched_kernel_matches_ref(cuda):
+    """B = 4 arenas of 4096 against 2000 keypoints each, each with its own
+    radius (12 to 48 px), in one launch pair; sequence 2 has no valid
+    keypoint. Exact against the plain version, ties included, and B = 1 is
+    the one-arena kernel."""
+    rng = np.random.default_rng(44)
+    seqs = []
+    for _ in range(4):
+        K, lm_pos, lm_desc, lm_valid, kp_xy, kp_desc, kp_valid = _guided_fixture(
+            rng, M=4096, Kp=2000, W=1240.0, H=376.0, F=718.856, plant=3000)
+        uv = (lm_pos[:, :2] / lm_pos[:, 2:3] * 718.856 + np.array([620.0, 188.0], np.float32)).astype(np.float32)
+        seqs.append((lm_desc.view(np.int32), lm_valid, uv, kp_desc.view(np.int32), kp_valid, kp_xy))
+    args = [torch.from_numpy(np.stack(a)).to(cuda) for a in zip(*seqs)]
+    args[4][2] = False
+    r2 = torch.tensor([12.0, 25.0, 30.0, 48.0], device=cuda) ** 2
+    before = mk.guided_top2_batched.launches
+    lm_idx, valid = mk.guided_top2_batched(*args, r2)
+    torch.cuda.synchronize()
+    assert mk.guided_top2_batched.launches == before + 1
+    r_idx, r_valid = mk.guided_top2_batched_ref(*args, r2)
+    assert int(r_valid.sum()) > 800 and not bool(r_valid[2].any())
+    assert torch.equal(valid, r_valid) and torch.equal(lm_idx, r_idx)
+    one = mk.guided_top2(*[a[3] for a in args], r2[3])
+    batched = mk.guided_top2_batched(*[a[3:] for a in args], r2[3:])
+    assert torch.equal(batched[0][0], one[0]) and torch.equal(batched[1][0], one[1])

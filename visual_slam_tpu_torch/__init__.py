@@ -6,8 +6,9 @@ PyTorch; each Pallas kernel of the JAX package on the ported path is a
 hand-written CUDA C++ kernel for Hopper (``csrc/``, built by ``_build.py``)
 with a plain PyTorch version of the same function beside its wrapper.
 
-Ported so far: the fused mono tracking step with the local-map arena
-(``pipeline.make_track_step(local_map=True)``) and everything it reaches.
+Ported so far (README.md lists it): the fused mono tracking step, also
+over B sequences at once (``parallel.make_batched_vo``), the mono
+``CompiledSLAM`` main path, the host SLAM facade and loop closing.
 """
 
 __version__ = "0.1.0"

@@ -32,9 +32,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry point -> argtypes; every pointer (and the stream) is a c_void_p.
 SIGNATURES = {
-    "vslam_patches_moments": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "vslam_hamming_top2": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "vslam_guided_top2": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _F, _P, _P, _P, _P],
+    "vslam_patches_moments": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "vslam_hamming_top2": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "vslam_guided_top2": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _F, _F, _P, _P, _P, _P],
     "vslam_extract_patches32": [_P, _I, _I, _P, _I, _P, _P],
 }
 

@@ -28,6 +28,10 @@
 // - The last block to finish (a ticket counter after a fence) decodes that
 //   buffer into (lm_idx, valid): two launches per call, the fill and the
 //   matcher, with no host sync.
+// - B sequences in the same two launches (the batched VO step): blockIdx.y
+//   is the sequence. Each has its own arena, keypoints and radius (the
+//   radius follows its motion model), and its own (K + 1) minima and ticket,
+//   so the last block of a sequence decodes that sequence alone.
 // The TPU kernel's bf16 bit matmul over a full (tile, K) distance tile and
 // its 128-lane padding are gone.
 
@@ -45,6 +49,7 @@ constexpr int kChunk = 2048;  // keypoint positions staged in shared memory at a
 
 __global__ void fill_colenc(int* __restrict__ colenc, int K) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  colenc += static_cast<size_t>(blockIdx.y) * (K + 1);
   if (i < K) colenc[i] = INT_MAX;
   if (i == K) colenc[i] = 0;  // blocks done
 }
@@ -57,11 +62,21 @@ __global__ void __launch_bounds__(32 * kWarps) guided_top2_kernel(
     int* __restrict__ lm_idx, unsigned char* __restrict__ valid) {
   __shared__ float2 s_xy[kChunk];
   __shared__ bool s_last;
+  const size_t b = blockIdx.y;  // the sequence
+  lm_desc += b * M * vslam::kWords;
+  lm_ok += b * M;
+  lm_uv += b * M * 2;
+  kp_desc += b * K * vslam::kWords;
+  kp_valid += b * K;
+  kp_xy += b * K * 2;
+  colenc += b * (K + 1);
+  lm_idx += b * K;
+  valid += b * K;
   const int lane = threadIdx.x & 31;
   const int m = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const bool live = m < M && lm_ok[m];  // uniform across the warp
 
-  const float r2 = *r2_ptr;
+  const float r2 = r2_ptr[b];
   float u = 0.f, v = 0.f;
   uint4 a0 = make_uint4(0, 0, 0, 0), a1 = a0;
   if (live) {
@@ -136,19 +151,21 @@ __global__ void __launch_bounds__(32 * kWarps) guided_top2_kernel(
 
 }  // namespace
 
-// lm_desc: (M, 8) int32 words; lm_ok: (M,) bool (valid and visible);
-// lm_uv: (M, 2) f32 projected pixels; kp_desc: (K, 8); kp_valid: (K,) bool;
-// kp_xy: (K, 2) f32; r2: device pointer to the squared radius (f32).
-// Outputs: lm_idx (K,) int32, valid (K,) bool; colenc (K + 1,) int32
-// scratch. Needs 257*M < 2^31. Returns cudaGetLastError() after the
+// B sequences, each: lm_desc (M, 8) int32 words; lm_ok (M,) bool (valid and
+// visible); lm_uv (M, 2) f32 projected pixels; kp_desc (K, 8); kp_valid
+// (K,) bool; kp_xy (K, 2) f32; all stacked on a leading B. r2: (B,) f32
+// device pointer, the squared radius of each sequence. Outputs: lm_idx
+// (B, K) int32, valid (B, K) bool; colenc (B, K + 1) int32 scratch. Needs
+// 257*M < 2^31 and B <= 65535. Returns cudaGetLastError() after the
 // launches.
 extern "C" int vslam_guided_top2(const int* lm_desc, const unsigned char* lm_ok, const float* lm_uv, int M,
-                                 const int* kp_desc, const unsigned char* kp_valid, const float* kp_xy, int K,
+                                 const int* kp_desc, const unsigned char* kp_valid, const float* kp_xy, int K, int B,
                                  const float* r2, float ratio, float max_distance, int* colenc, int* lm_idx,
                                  unsigned char* valid, void* stream) {
+  if (B < 1 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fill_colenc<<<(K + 256) / 256, 256, 0, s>>>(colenc, K);
-  guided_top2_kernel<<<(M + kWarps - 1) / kWarps, 32 * kWarps, 0, s>>>(
+  fill_colenc<<<dim3((K + 256) / 256, B), 256, 0, s>>>(colenc, K);
+  guided_top2_kernel<<<dim3((M + kWarps - 1) / kWarps, B), 32 * kWarps, 0, s>>>(
       lm_desc, lm_ok, lm_uv, M, kp_desc, kp_valid, kp_xy, K, r2, ratio, max_distance, colenc, lm_idx, valid);
   return static_cast<int>(cudaGetLastError());
 }

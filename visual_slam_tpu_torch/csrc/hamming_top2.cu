@@ -6,7 +6,10 @@
 // through hamming_top2 from ops/matching.py::match_descriptors (tracking);
 // with C > 1 it is K4, reached through match_descriptors_batched from loop
 // closing's detect (C = 64 there: 8 shortlisted keyframes and 56 all-invalid
-// padding blocks). For K1 query x K2 train 256-bit descriptors with validity
+// padding blocks). Paired, candidate c brings its own query block c: that is
+// K2 of the batched VO step, C = B sequences each matched against its own
+// reference, through hamming_top2_paired. For K1 query x K2 train 256-bit
+// descriptors with validity
 // masks, per candidate: per query row the best and second distance and the
 // argbest (lowest column on ties; a later equal column becomes second); per
 // train column the query row of its minimum (lowest row on ties), for the
@@ -35,6 +38,10 @@
 //   kernel, up to a warp per row and per column, merges them across its
 //   lanes (Top2::merge: ties keep the lower column, in any order) and
 //   decodes the column argmin. Two launches, no host sync.
+// - Paired or not, one launch pair serves all C candidates: the query
+//   pointers step by K1 rows per candidate when paired and by 0 otherwise,
+//   and the partials, the active flags and the outputs already carry the
+//   candidate axis.
 // - A tile whose query rows or train columns are all invalid computes
 //   nothing: it marks itself inactive and the finisher leaves it out, which
 //   yields BIG/BIG/0 and column argmin 0 where nothing else is valid. A
@@ -74,7 +81,7 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], cons
 
 __global__ void __launch_bounds__(kThreads) hamming_tile_kernel(
     const int* __restrict__ q, const unsigned char* __restrict__ qv, int K1,
-    const int* __restrict__ t, const unsigned char* __restrict__ tv, int K2,
+    const int* __restrict__ t, const unsigned char* __restrict__ tv, int K2, int paired,
     int* __restrict__ rowpart, int* __restrict__ colpart, unsigned char* __restrict__ active) {
   __shared__ __align__(16) uint32_t s_bits[2][kTile * kRowWords];  // query, train: byte b of a row = bit b
   __shared__ int s_pop[2][kTile];                                   // popcount, -1 where invalid
@@ -87,6 +94,10 @@ __global__ void __launch_bounds__(kThreads) hamming_tile_kernel(
   const size_t cand = blockIdx.z;
   t += cand * K2 * vslam::kWords;
   tv += cand * K2;
+  if (paired) {
+    q += cand * K1 * vslam::kWords;
+    qv += cand * K1;
+  }
 
   // Threads 0-63 read the tile's query validity, 64-127 its train validity.
   const bool side_t = tid >= kTile;
@@ -273,17 +284,20 @@ __global__ void __launch_bounds__(kFinishThreads) hamming_finish_kernel(
 
 }  // namespace
 
-// q: (K1, 8) int32 words, qv: (K1,) bool; t: (C, K2, 8), tv: (C, K2) bool.
+// q: (K1, 8) int32 words, qv: (K1,) bool, or (C, K1, 8) and (C, K1) when
+// paired is nonzero; t: (C, K2, 8), tv: (C, K2) bool.
 // Outputs: best, second (C, K1) f32; arg (C, K1) int32; colarg (C, K2) int32.
 // Scratch: rowpart (C, ceil(K2/64), K1) int32, colpart (C, ceil(K1/64), K2)
 // int32, active (C, ceil(K1/64), ceil(K2/64)) uint8. Needs K1*257 < 2^31,
 // K2 < 8192 and C <= 65535. Returns cudaGetLastError() after the launches.
 extern "C" int vslam_hamming_top2(const int* q, const unsigned char* qv, int K1, const int* t,
-                                  const unsigned char* tv, int K2, int C, float* best, float* second, int* arg,
-                                  int* colarg, int* rowpart, int* colpart, unsigned char* active, void* stream) {
+                                  const unsigned char* tv, int K2, int C, int paired, float* best, float* second,
+                                  int* arg, int* colarg, int* rowpart, int* colpart, unsigned char* active,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_rt = (K1 + kTile - 1) / kTile, n_ct = (K2 + kTile - 1) / kTile;
-  hamming_tile_kernel<<<dim3(n_rt, n_ct, C), kThreads, 0, s>>>(q, qv, K1, t, tv, K2, rowpart, colpart, active);
+  hamming_tile_kernel<<<dim3(n_rt, n_ct, C), kThreads, 0, s>>>(q, qv, K1, t, tv, K2, paired, rowpart, colpart,
+                                                                active);
   // Lanes per row and column: as many as keep about 64K threads busy (all
   // 32 at C = 1, 2000 x 2000), one when the candidates alone fill the card.
   const int n = K1 > K2 ? K1 : K2;

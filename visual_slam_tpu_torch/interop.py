@@ -71,6 +71,19 @@ def track_state_from_numpy(state, device=None, seed: int = 0) -> TrackState:
     )
 
 
+def batched_track_state_from_numpy(np_states, device=None, seeds=()) -> TrackState:
+    """The port's batched ``TrackState`` (``parallel.multiseq``) from the JAX
+    package's stacked one (``jax.tree.map(jnp.stack, ...)`` of B states, as
+    numpy arrays): every leaf bit for bit with its leading B, and one new
+    generator per sequence, seeded with ``seeds[b]`` (the JAX keys do not
+    carry over)."""
+    state = track_state_from_numpy(np_states, device)
+    if len(seeds) != state.T_w2c.shape[0]:
+        raise ValueError(f"{len(seeds)} seeds for a batch of {state.T_w2c.shape[0]} states")
+    dev = state.T_w2c.device
+    return state._replace(gen=tuple(torch.Generator(device=dev).manual_seed(int(s)) for s in seeds))
+
+
 def track_output_from_numpy(out, device=None) -> TrackOutput:
     """The port's ``TrackOutput`` from an object with the JAX fields; the
     stereo depth fields, ``None`` on a mono step, become zeros. Leading

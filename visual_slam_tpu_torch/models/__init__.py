@@ -1,4 +1,11 @@
-"""End-to-end SLAM systems (port of ``visual_slam_tpu.models``): the mono
-``CompiledSLAM``."""
+"""End-to-end SLAM systems and pipeline families (port of
+``visual_slam_tpu.models``):
+
+  * MonoVO     -- monocular SLAM (two-view init, PnP tracking, LM-BA)
+  * CompiledVO -- the fused device-resident per-frame step
+  * BatchedVO  -- data-parallel multi-sequence VO
+  * CompiledSLAM -- the mono chunked main path
+"""
 
 from .compiled_slam import CompiledSLAM  # noqa: F401
+from .families import BatchedVO, CompiledVO, MonoVO  # noqa: F401

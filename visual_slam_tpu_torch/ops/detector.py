@@ -3,6 +3,9 @@ moments + patches (kernel K1, one launch for all levels) -> steered BRIEF
 (port of ``visual_slam_tpu.ops.detector``).
 
 The output always has exactly ``num_features`` slots with a validity mask.
+A (B, H, W) batch of frames (the batched VO step) goes through every stage
+at once, with the batched K1 (one launch for all B frames and levels); its
+features carry the leading B.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ import torch
 from . import fast as fast_ops
 from . import orb as orb_ops
 from . import pyramid as pyr_ops
-from .patch_kernels import patches_and_moments_levels
+from .patch_kernels import patches_and_moments_batched, patches_and_moments_levels
 
 
 class Features(NamedTuple):
@@ -40,9 +43,10 @@ def level_quotas(num_features: int, n_levels: int, scale: float) -> list[int]:
 def detect_level(
     lvl: torch.Tensor, k: int, threshold: float, grid: int, edge_margin: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """FAST scores, NMS, interior mask and grid top-k on one level:
-    (yx (k, 2) int32, response (k,), valid (k,), subpixel offsets (k, 2))."""
-    Hl, Wl = lvl.shape
+    """FAST scores, NMS, interior mask and grid top-k on one (..., H_l, W_l)
+    level: (yx (..., k, 2) int32, response (..., k), valid (..., k),
+    subpixel offsets (..., k, 2))."""
+    Hl, Wl = lvl.shape[-2:]
     scores = fast_ops.nms(fast_ops.fast_scores(lvl, threshold))
     scores = torch.where(fast_ops.interior_mask(Hl, Wl, edge_margin, lvl.device), scores, 0.0)
     yx, resp, valid = fast_ops.top_k_grid(scores, k, grid=grid)
@@ -60,43 +64,47 @@ def detect_and_describe(
     grid: int = 8,
     edge_margin: int = 16,
 ) -> Features:
-    """Full ORB front end on one (H, W) grayscale image in [0, 255].
+    """Full ORB front end on one (H, W) grayscale image in [0, 255], or on a
+    (B, H, W) batch of them (features with a leading B).
 
     ``sampling`` is the (961, 15360) rotated-BRIEF matrix and ``moment_w``
     the (961, 2) moment weights, both on the image's device."""
-    H0, W0 = img.shape
+    *batch, H0, W0 = img.shape
+    batch = tuple(batch)
     img = img.to(torch.float32)
     levels = [lvl.contiguous() for lvl in pyr_ops.build_pyramid(img, n_levels, scale)]
     quotas = level_quotas(num_features, n_levels, scale)
     dets = [detect_level(lvl, k_l, threshold, grid, edge_margin) for lvl, k_l in zip(levels, quotas)]
     blurred = [pyr_ops.gaussian_blur(lvl, sigma=2.0, radius=3) for lvl in levels]
-    # K1 once for every level; its outputs are level-major, as the features.
-    mom, patches = patches_and_moments_levels(levels, blurred, [d[0] for d in dets], moment_w)
-    ang = torch.atan2(mom[:, 1], mom[:, 0])
+    # K1 once for every level (and frame); its outputs are level-major, as the features.
+    k1 = patches_and_moments_batched if batch else patches_and_moments_levels
+    mom, patches = k1(levels, blurred, [d[0] for d in dets], moment_w)
+    ang = torch.atan2(mom[..., 1], mom[..., 0])
     outs = []
     k0 = 0
     for l, (lvl, k_l, (yx, resp, valid, sub)) in enumerate(zip(levels, quotas, dets)):
-        Hl, Wl = lvl.shape
+        Hl, Wl = lvl.shape[-2:]
         sx = W0 / Wl
         sy = H0 / Hl
         xy_full = torch.stack(
-            [(yx[:, 1].to(torch.float32) + sub[:, 1]) * sx, (yx[:, 0].to(torch.float32) + sub[:, 0]) * sy],
+            [(yx[..., 1].to(torch.float32) + sub[..., 1]) * sx, (yx[..., 0].to(torch.float32) + sub[..., 0]) * sy],
             dim=-1,
         )
-        ang_l = ang[k0:k0 + k_l]
+        ang_l = ang[..., k0:k0 + k_l]
         outs.append(
             Features(
                 xy=xy_full,
                 response=resp,
                 angle=ang_l,
-                octave=torch.full((k_l,), l, dtype=torch.int32, device=img.device),
+                octave=torch.full(batch + (k_l,), l, dtype=torch.int32, device=img.device),
                 size=torch.full(
-                    (k_l,), orb_ops.PATCH * (sx + sy) * 0.5, dtype=torch.float32, device=img.device
+                    batch + (k_l,), orb_ops.PATCH * (sx + sy) * 0.5, dtype=torch.float32, device=img.device
                 ),
-                # Per level, as the JAX package: the product's rounding stays its own.
-                desc=orb_ops.descriptors(patches[k0:k0 + k_l], ang_l, sampling),
+                # Per level, as the JAX package: the product's rounding stays
+                # its own. A batch's level is one product over its B * K_l rows.
+                desc=orb_ops.descriptors(patches[..., k0:k0 + k_l, :, :], ang_l, sampling),
                 valid=valid,
             )
         )
         k0 += k_l
-    return Features(*[torch.cat([getattr(o, f) for o in outs], dim=0) for f in Features._fields])
+    return Features(*[torch.cat([getattr(o, f) for o in outs], dim=len(batch)) for f in Features._fields])

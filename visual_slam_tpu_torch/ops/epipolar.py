@@ -24,18 +24,25 @@ _EPS = 1e-9
 
 
 def _sample_minimal_sets(
-    gen: torch.Generator, mask: torch.Tensor, n_hyp: int, set_size: int
+    gen, mask: torch.Tensor, n_hyp: int, set_size: int
 ) -> torch.Tensor:
     """(n_hyp, set_size) int64 indices drawn uniformly, with replacement,
     from the entries where ``mask`` is True, by inverting the mask's
     cumulative count: no host round-trip. Torch cannot reproduce JAX's
     random bits, so only the distribution matches the JAX version (which
     draws from all entries when the mask is empty; here that case returns
-    the last index, a degenerate hypothesis either way)."""
-    cdf = torch.cumsum(mask.to(torch.float32), dim=0)
-    u = torch.rand((n_hyp, set_size), generator=gen, device=mask.device)
-    idx = torch.searchsorted(cdf, u * cdf[-1], right=True)
-    return torch.clamp(idx, max=mask.shape[0] - 1) if mask.shape[0] else idx
+    the last index, a degenerate hypothesis either way). A (B, N) ``mask``
+    with a sequence of B generators (the batched VO step) draws each row's
+    sets from its own generator, as B single calls would: (B, n_hyp,
+    set_size)."""
+    cdf = torch.cumsum(mask.to(torch.float32), dim=-1)
+    if isinstance(gen, torch.Generator):
+        u = torch.rand((n_hyp, set_size), generator=gen, device=mask.device)
+    else:
+        u = torch.stack([torch.rand((n_hyp, set_size), generator=g, device=mask.device) for g in gen])
+    v = u * cdf[..., -1:, None]
+    idx = torch.searchsorted(cdf, v.flatten(-2), right=True).reshape(v.shape)
+    return torch.clamp(idx, max=mask.shape[-1] - 1) if mask.shape[-1] else idx
 
 
 def _hartley_normalize(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -3,12 +3,15 @@
 
 Slot order matters downstream (matcher ties resolve toward the stronger
 feature), so every top-k here is a stable descending sort: equal scores
-keep the lower index first, as ``lax.top_k`` does.
+keep the lower index first, as ``lax.top_k`` does. Score maps are (..., H,
+W): a leading batch of frames goes through at once.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .pyramid import pad_replicate
 
 # FAST-16 Bresenham circle of radius 3, clockwise from 12 o'clock: (dy, dx).
 RING_OFFSETS = (
@@ -21,9 +24,9 @@ BORDER = 3
 
 def _ring(img: torch.Tensor) -> list[torch.Tensor]:
     """The 16 ring neighbours of every pixel, edge-replicated at the border."""
-    H, W = img.shape
-    p = F.pad(img[None, None], (BORDER,) * 4, mode="replicate")[0, 0]
-    return [p[BORDER + dy : BORDER + dy + H, BORDER + dx : BORDER + dx + W] for dy, dx in RING_OFFSETS]
+    H, W = img.shape[-2:]
+    p = pad_replicate(img, BORDER)
+    return [p[..., BORDER + dy : BORDER + dy + H, BORDER + dx : BORDER + dx + W] for dy, dx in RING_OFFSETS]
 
 
 def _has_arc(mask16: torch.Tensor) -> torch.Tensor:
@@ -42,13 +45,13 @@ def interior_mask(H: int, W: int, margin: int, device) -> torch.Tensor:
 
 
 def fast_scores(img: torch.Tensor, threshold: float) -> torch.Tensor:
-    """(H, W) FAST-9/16 score map: 0 for non-corners, else the SAD score of
-    the winning polarity. The 16 ring terms are summed in ring order."""
-    H, W = img.shape
+    """(..., H, W) FAST-9/16 score map: 0 for non-corners, else the SAD score
+    of the winning polarity. The 16 ring terms are summed in ring order."""
+    H, W = img.shape[-2:]
     thr = float(threshold)  # a Python scalar: no host-to-device copy
     hi = img + thr
     lo = img - thr
-    bmask = torch.zeros((H, W), dtype=torch.int32, device=img.device)
+    bmask = torch.zeros(img.shape, dtype=torch.int32, device=img.device)
     dmask = torch.zeros_like(bmask)
     bscore = torch.zeros_like(img)
     dscore = torch.zeros_like(img)
@@ -67,20 +70,20 @@ def fast_scores(img: torch.Tensor, threshold: float) -> torch.Tensor:
 
 def _pool3(x: torch.Tensor, fill: float, op) -> torch.Tensor:
     """3x3 'SAME' pooling with ``fill`` outside the image, as shifted slices."""
-    H, W = x.shape
-    p = F.pad(x[None, None], (1, 1, 1, 1), value=fill)[0, 0]
-    out = p[0:H, 0:W]
+    H, W = x.shape[-2:]
+    p = F.pad(x, (1, 1, 1, 1), value=fill)
+    out = p[..., 0:H, 0:W]
     for dy in range(3):
         for dx in range(3):
             if dy or dx:
-                out = op(out, p[dy : dy + H, dx : dx + W])
+                out = op(out, p[..., dy : dy + H, dx : dx + W])
     return out
 
 
 def nms(scores: torch.Tensor) -> torch.Tensor:
     """3x3 non-max suppression with exact tie-break toward the
     lexicographically first pixel of a plateau."""
-    H, W = scores.shape
+    H, W = scores.shape[-2:]
     pooled = _pool3(scores, float("-inf"), torch.maximum)
     is_max = (scores >= pooled) & (scores > 0.0)
     idx = torch.arange(H * W, device=scores.device, dtype=torch.int32).reshape(H, W)
@@ -103,8 +106,9 @@ def top_k_grid(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Spatially balanced top-k: each of ``grid x grid`` cells keeps its
     best ``per_cell_factor * ceil(k / grid^2)`` corners, then the global
-    top-k of the survivors. Returns (yx (k, 2) int32, score (k,), valid (k,))."""
-    H, W = scores.shape
+    top-k of the survivors. Returns (yx (..., k, 2) int32, score (..., k),
+    valid (..., k))."""
+    *batch, H, W = scores.shape
     g = grid
     cap = -(-k // (g * g)) * per_cell_factor
     ph = -(-H // g) * g - H
@@ -112,27 +116,29 @@ def top_k_grid(
     s = F.pad(scores, (0, pw, 0, ph))
     Hp, Wp = H + ph, W + pw
     ch, cw = Hp // g, Wp // g
-    cells = s.reshape(g, ch, g, cw).permute(0, 2, 1, 3).reshape(g * g, ch * cw)
+    cells = s.reshape(*batch, g, ch, g, cw).transpose(-3, -2).reshape(*batch, g * g, ch * cw)
     cell_scores, cell_idx = _top_k(cells, cap)
     cell = torch.arange(g * g, device=scores.device)
     abs_y = (cell // g)[:, None] * ch + cell_idx // cw
     abs_x = (cell % g)[:, None] * cw + cell_idx % cw
-    top_scores, top_i = _top_k(cell_scores.reshape(-1), k)
-    yx = torch.stack([abs_y.reshape(-1)[top_i], abs_x.reshape(-1)[top_i]], dim=-1)
+    top_scores, top_i = _top_k(cell_scores.reshape(*batch, -1), k)
+    yx = torch.stack([a.reshape(*batch, -1).gather(-1, top_i) for a in (abs_y, abs_x)], dim=-1)
     return yx.to(torch.int32), top_scores, top_scores > 0.0
 
 
 def subpixel_offsets(scores: torch.Tensor, yx: torch.Tensor) -> torch.Tensor:
     """Separable 1-D quadratic fit on the score surface around each
-    selected pixel: (k, 2) (dy, dx) in [-0.5, 0.5]. Indices past the edge
-    clamp, as JAX's gather does (padding slots of the grid can sit there)."""
+    selected pixel: (..., k, 2) (dy, dx) in [-0.5, 0.5]. Indices past the
+    edge clamp, as JAX's gather does (padding slots of the grid can sit
+    there)."""
     p = F.pad(scores, (1, 1, 1, 1))
-    Hp, Wp = p.shape
-    y = yx[:, 0].long() + 1
-    x = yx[:, 1].long() + 1
+    Hp, Wp = p.shape[-2:]
+    flat = p.flatten(-2)
+    y = yx[..., 0].long() + 1
+    x = yx[..., 1].long() + 1
 
     def at(yy, xx):
-        return p[yy.clamp(0, Hp - 1), xx.clamp(0, Wp - 1)]
+        return flat.gather(-1, yy.clamp(0, Hp - 1) * Wp + xx.clamp(0, Wp - 1))
 
     def fit(sm, s0, sp):
         denom = sm - 2.0 * s0 + sp

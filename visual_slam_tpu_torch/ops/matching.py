@@ -5,7 +5,9 @@ The distance + top-2 + cross-check stage runs in kernel K2
 (``hamming_top2_batched``), on the card and in their plain versions on the
 CPU; the JAX package's backend sniffing is gone. All matchers return a
 fixed-shape table aligned to the query side. The filters take leading batch
-dimensions (one row per candidate block).
+dimensions (one row per candidate block); ``match_descriptors`` takes a
+leading B on both sides (B query blocks, each against its own train block:
+the batched VO step), which goes through K2 once as ``hamming_top2_paired``.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import math
 import torch
 
 from .match_kernels import BIG, hamming_distance_matrix, hamming_top2, hamming_top2_batched  # noqa: F401
+from .match_kernels import hamming_top2_paired
 from .match_kernels import top2 as min2  # (best, second, argmin), first-index ties
 
 
@@ -96,14 +99,17 @@ def match_descriptors(
     """K2 match -> unique-train -> optional orientation filter. Returns
     ``train_idx`` (K1,) int64, ``distance``, ``valid`` and ``n_matches``
     (a 0-d tensor: the step never reads it on the host). On the card the
-    (K1, K2) distance matrix never exists: kernel K2 reduces it in place."""
-    d, second, ti, colarg = hamming_top2(desc1, desc2, valid1, valid2)
+    (K1, K2) distance matrix never exists: kernel K2 reduces it in place.
+    With a leading B on every input (query block b against train block b)
+    each output carries it too."""
+    top2 = hamming_top2 if desc1.dim() == 2 else hamming_top2_paired
+    d, second, ti, colarg = top2(desc1, desc2, valid1, valid2)
     ok = _nn_ok(d, second, ti, colarg, ratio, cross_check, max_distance)
     ti = ti.long()
-    ok = unique_train(ti, d, ok, desc2.shape[0])
+    ok = unique_train(ti, d, ok, desc2.shape[-2])
     if use_orientation and angle1 is not None:
         ok = orientation_filter(angle1, angle2, ti, ok, n_bins=n_bins, keep_bins=keep_bins)
-    return {"train_idx": ti, "distance": d, "valid": ok, "n_matches": ok.sum()}
+    return {"train_idx": ti, "distance": d, "valid": ok, "n_matches": ok.sum(-1)}
 
 
 def match_descriptors_batched(

@@ -108,8 +108,8 @@ def angle_bins(angles: torch.Tensor) -> torch.Tensor:
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """(K, 256) 0/1 -> (K, 8) int32 words, bit s of word w = bits[32w + s]."""
-    b = bits.to(torch.int64).reshape(-1, N_WORDS, 32)
+    """(..., 256) 0/1 -> (..., 8) int32 words, bit s of word w = bits[32w + s]."""
+    b = bits.to(torch.int64).reshape(*bits.shape[:-1], N_WORDS, 32)
     shifts = torch.arange(32, device=bits.device, dtype=torch.int64)
     v = torch.sum(b << shifts, dim=-1)
     return torch.where(v > 2**31 - 1, v - 2**32, v).to(torch.int32)
@@ -118,13 +118,15 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
 def descriptors(
     patches: torch.Tensor, angles: torch.Tensor, sampling: torch.Tensor
 ) -> torch.Tensor:
-    """Steered BRIEF: (K, 31, 31) blurred patches + (K,) angles -> (K, 8)
-    int32. All 30 rotations are sampled by one product with the (961,
-    15360) matrix; each keypoint keeps its own bin's 512 samples."""
-    K = patches.shape[0]
-    samples_all = (patches.reshape(K, -1) @ sampling).reshape(K, N_BINS, 2 * N_BITS)
+    """Steered BRIEF: (..., K, 31, 31) blurred patches + (..., K) angles ->
+    (..., K, 8) int32. All 30 rotations are sampled by one product of every
+    keypoint (of every frame of a batch) with the (961, 15360) matrix; each
+    keypoint keeps its own bin's 512 samples."""
+    lead = patches.shape[:-2]
+    samples_all = (patches.reshape(-1, PATCH * PATCH) @ sampling).reshape(*lead, N_BINS, 2 * N_BITS)
     bins = angle_bins(angles)
-    vals = samples_all[torch.arange(K, device=patches.device), bins].reshape(K, N_BITS, 2)
+    vals = samples_all.gather(-2, bins[..., None, None].expand(*lead, 1, 2 * N_BITS))
+    vals = vals.reshape(*lead, N_BITS, 2)
     return pack_bits(vals[..., 0] < vals[..., 1])
 
 

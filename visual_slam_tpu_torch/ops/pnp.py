@@ -2,13 +2,15 @@
 hypotheses + Gauss-Newton SE(3) refinement (port of ``visual_slam_tpu.ops.pnp``).
 
 The JAX version ``vmap``s over hypotheses; here every function takes
-leading batch dimensions instead, so the 128 hypotheses are one batch.
-No function reads a value back to the host.
+leading batch dimensions instead, so the 128 hypotheses are one batch, and
+``ransac_pnp`` takes a leading batch of problems (the batched VO step's
+sequences) beside them. No function reads a value back to the host.
 """
 from __future__ import annotations
 
 import torch
 
+from .batch import take_rows
 from .epipolar import _sample_minimal_sets
 from .lie import make_T, project_to_so3, so3_exp
 from .linalg import nullspace_vector
@@ -109,7 +111,7 @@ def ransac_pnp(
     pts3d: torch.Tensor,
     xy: torch.Tensor,
     mask: torch.Tensor,
-    gen: torch.Generator | None = None,
+    gen=None,
     n_hyp: int = 256,
     thresh: torch.Tensor | float = 6e-3,
     refine_iters: int = 8,
@@ -121,25 +123,33 @@ def ransac_pnp(
 
     The minimal sets come from ``gen``, or are given as ``sample_idx``
     (n_hyp, 6) in its place (the tests feed the JAX sampler's draws).
-    Returns dict(R, t, T (4, 4), inliers (N,), n_inliers, ok)."""
+    Returns dict(R, t, T (4, 4), inliers (N,), n_inliers, ok). With a
+    leading batch on ``pts3d`` (B, N, 3), ``xy`` and ``mask`` (B problems
+    solved at once), ``gen`` is a sequence of B generators, ``sample_idx``
+    (B, n_hyp, 6), and every output carries the leading B."""
+    nb = mask.dim() - 1
     if sample_idx is None:
         sample_idx = _sample_minimal_sets(gen, mask, n_hyp, 6)
     idx = sample_idx.long()
     w6 = torch.ones(idx.shape, dtype=xy.dtype, device=xy.device)
-    Rs, ts = pnp_dlt(pts3d[idx], xy[idx], w6)
+    Rs, ts = pnp_dlt(take_rows(pts3d, idx, nb), take_rows(xy, idx, nb), w6)
     mask_f = mask.to(xy.dtype)
-    Rs, ts = refine_pose_gn(Rs, ts, pts3d, xy, mask_f, iters=2, huber=4.0 * thresh)
-    errs = _reproj_err2(Rs, ts, pts3d, xy)  # (H, N)
+    # Each problem's points against all of its hypotheses: (..., 1, N, .).
+    P, x, m = pts3d.unsqueeze(-3), xy.unsqueeze(-3), mask_f.unsqueeze(-2)
+    Rs, ts = refine_pose_gn(Rs, ts, P, x, m, iters=2, huber=4.0 * thresh)
+    errs = _reproj_err2(Rs, ts, P, x)  # (..., H, N)
     t2 = thresh * thresh
-    cost = torch.where(mask[None, :], torch.clamp(errs, max=t2), 0.0).sum(-1)
-    best = torch.argmin(cost)[None]  # index_select: indexing by a 0-d tensor reads it on the host
-    R0, t0 = Rs.index_select(0, best)[0], ts.index_select(0, best)[0]
+    cost = torch.where(mask.unsqueeze(-2), torch.clamp(errs, max=t2), 0.0).sum(-1)
+    # gather, not indexing by the 0-d argmin: that reads it on the host.
+    best = torch.argmin(cost, dim=-1)[..., None, None, None]
+    R0 = Rs.gather(-3, best.expand(*best.shape[:-2], 3, 3))[..., 0, :, :]
+    t0 = ts.gather(-2, best[..., 0].expand(*best.shape[:-3], 1, 3))[..., 0, :]
     inl0 = (_reproj_err2(R0, t0, pts3d, xy) < t2) & mask
     R, t = refine_pose_gn(R0, t0, pts3d, xy, inl0.to(xy.dtype), iters=refine_iters, huber=thresh)
     inliers = (_reproj_err2(R, t, pts3d, xy) < t2) & mask
-    better = inliers.sum() >= inl0.sum()
-    R = torch.where(better, R, R0)
+    better = (inliers.sum(-1) >= inl0.sum(-1))[..., None]
+    R = torch.where(better[..., None], R, R0)
     t = torch.where(better, t, t0)
     inliers = torch.where(better, inliers, inl0)
-    n_inl = inliers.sum()
+    n_inl = inliers.sum(-1)
     return {"R": R, "t": t, "T": make_T(R, t), "inliers": inliers, "n_inliers": n_inl, "ok": n_inl >= 6}

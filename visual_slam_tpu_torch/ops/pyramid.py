@@ -1,4 +1,7 @@
-"""Image pyramid + Gaussian smoothing (port of ``visual_slam_tpu.ops.pyramid``)."""
+"""Image pyramid + Gaussian smoothing (port of ``visual_slam_tpu.ops.pyramid``).
+
+Images are (..., H, W): a leading batch of frames (the batched VO step)
+goes through every function at once."""
 from __future__ import annotations
 
 import torch
@@ -16,15 +19,21 @@ def gaussian_blur(img: torch.Tensor, sigma: float = 2.0, radius: int = 3) -> tor
     version's order (horizontal pass, then vertical), so the f32 rounding
     follows it term by term."""
     k = gaussian_kernel1d(sigma, radius).tolist()
-    H, W = img.shape
-    p = F.pad(img[None, None], (radius, radius, radius, radius), mode="replicate")[0, 0]
-    out = torch.zeros((H + 2 * radius, W), dtype=img.dtype, device=img.device)
+    *batch, H, W = img.shape
+    p = pad_replicate(img, radius)
+    out = torch.zeros((*batch, H + 2 * radius, W), dtype=img.dtype, device=img.device)
     for i in range(2 * radius + 1):
-        out = out + k[i] * p[:, i : i + W]
-    out2 = torch.zeros((H, W), dtype=img.dtype, device=img.device)
+        out = out + k[i] * p[..., :, i : i + W]
+    out2 = torch.zeros((*batch, H, W), dtype=img.dtype, device=img.device)
     for i in range(2 * radius + 1):
-        out2 = out2 + k[i] * out[i : i + H, :]
+        out2 = out2 + k[i] * out[..., i : i + H, :]
     return out2
+
+
+def pad_replicate(img: torch.Tensor, r: int) -> torch.Tensor:
+    """(..., H, W) -> (..., H + 2r, W + 2r), edges replicated."""
+    *batch, H, W = img.shape
+    return F.pad(img.reshape(-1, 1, H, W), (r, r, r, r), mode="replicate").reshape(*batch, H + 2 * r, W + 2 * r)
 
 
 def pyramid_shapes(height: int, width: int, n_levels: int, scale: float) -> list[tuple[int, int]]:
@@ -54,7 +63,7 @@ def resize_weights(in_size: int, out_size: int, device=None) -> torch.Tensor:
 
 def resize_linear(img: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
     """Antialiased linear resize as two matmuls with the per-axis weights."""
-    H, W = img.shape
+    H, W = img.shape[-2:]
     Ho, Wo = shape
     out = img
     if Ho != H:
@@ -65,9 +74,9 @@ def resize_linear(img: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
 
 
 def build_pyramid(img: torch.Tensor, n_levels: int, scale: float) -> list[torch.Tensor]:
-    """List of (H_l, W_l) float32 levels; level 0 is the input, each next
-    level resized from the previous one."""
-    H, W = img.shape
+    """List of (..., H_l, W_l) float32 levels; level 0 is the input, each
+    next level resized from the previous one."""
+    H, W = img.shape[-2:]
     shapes = pyramid_shapes(H, W, n_levels, scale)
     levels = [img]
     for l in range(1, n_levels):

@@ -7,6 +7,12 @@ Gauss-Newton fallback from the constant-velocity prediction -> motion
 model update. The state lives on the device and the step never reads a
 value back to the host: every decision is a ``torch.where``.
 
+The same step tracks B sequences at once (``parallel.multiseq``, the JAX
+package's ``vmap`` of the step): given (B, H, W) frames and a state whose
+leaves are stacked on a leading B (``stack_track_states``, with B
+generators), every stage runs batched and each kernel launches once for
+all B; ``split_track_outputs`` gives back the B ``TrackOutput``s.
+
 ``make_track_chunk`` runs the step over a chunk of frames with a fixed
 reference; ``make_track_chunk_promote`` also promotes keyframes inside the
 chunk on the device (inheriting and triangulating the new reference
@@ -25,6 +31,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from .ops import orb as orb_ops
+from .ops.batch import take_rows
 from .ops.detector import Features, detect_and_describe
 from .ops.guided_matching import guided_match
 from .ops.lie import make_T, rotation_angle, se3_inverse
@@ -33,19 +40,21 @@ from .ops.pnp import _reproj_err2, ransac_pnp, refine_pose_gn
 from .ops.projection import normalize_points
 from .ops.triangulation import triangulate_gated
 from .utils.device import default_device
-from .utils.tree import to_device
+from .utils.tree import to_device, tree_map
 
 
 class TrackState(NamedTuple):
     """Device-resident tracking state. ``gen`` draws the RANSAC samples and
-    is advanced in place by every step (the JAX state's ``key``)."""
+    is advanced in place by every step (the JAX state's ``key``). A batched
+    state stacks every tensor leaf on a leading B and holds a tuple of B
+    generators, one per sequence."""
 
     ref_feats: Features  # reference keyframe feature block
     ref_landmarks: torch.Tensor  # (K, 3) landmark per reference keypoint slot
     ref_has_landmark: torch.Tensor  # (K,) bool
     T_w2c: torch.Tensor  # (4, 4) current pose
     T_rel: torch.Tensor  # (4, 4) constant-velocity motion model
-    gen: torch.Generator
+    gen: torch.Generator | tuple[torch.Generator, ...]
     lm_pos: torch.Tensor | None = None  # (M, 3) local-map arena
     lm_desc: torch.Tensor | None = None  # (M, 8) int32 words
     lm_valid: torch.Tensor | None = None  # (M,) bool
@@ -122,19 +131,23 @@ class TrackStep(nn.Module):
     def solve_pose(self, pts3d, xy_norm, pair_valid, T_pred, gen, sample_idx=None):
         """RANSAC-PnP over the 3D-2D pairs, and a robust Gauss-Newton from the
         predicted pose that wins where it holds more inliers. Returns
-        (T_w2c (4, 4), inliers (N,)), on the device."""
+        (T_w2c (4, 4), inliers (N,)), on the device; with a leading B on
+        every input (and B generators) each output carries it."""
         with record_function("ransac_pnp"):
             res = ransac_pnp(pts3d, xy_norm, pair_valid, gen, n_hyp=self.pnp_hypotheses, thresh=self.thresh,
                              sample_idx=sample_idx)
         with record_function("fallback_gn"):
-            R_f, t_f = refine_pose_gn(T_pred[:3, :3], T_pred[:3, 3], pts3d, xy_norm, pair_valid.to(torch.float32),
-                                      iters=8, huber=self.thresh)
+            R_f, t_f = refine_pose_gn(T_pred[..., :3, :3], T_pred[..., :3, 3], pts3d, xy_norm,
+                                      pair_valid.to(torch.float32), iters=8, huber=self.thresh)
         inl_f = (_reproj_err2(R_f, t_f, pts3d, xy_norm) < self.thresh * self.thresh) & pair_valid
-        use_fallback = inl_f.sum() > res["n_inliers"]
-        T = make_T(torch.where(use_fallback, R_f, res["R"]), torch.where(use_fallback, t_f, res["t"]))
+        use_fallback = (inl_f.sum(-1) > res["n_inliers"])[..., None]
+        T = make_T(torch.where(use_fallback[..., None], R_f, res["R"]), torch.where(use_fallback, t_f, res["t"]))
         return T, torch.where(use_fallback, inl_f, res["inliers"])
 
     def forward(self, state: TrackState, img: torch.Tensor) -> tuple[TrackState, TrackOutput]:
+        """One frame (H, W), or one frame of each of B sequences (B, H, W)
+        against a batched state."""
+        nb = img.dim() - 2  # leading batch dimensions: 0, or 1 for B sequences
         # record_function spans name the stages in a torch.profiler trace
         # (about a microsecond each when no profiler runs).
         with record_function("detect"):
@@ -146,16 +159,15 @@ class TrackStep(nn.Module):
                 ratio=self.ratio, cross_check=True, use_orientation=True,
             )
         ti = match["train_idx"]
-        pair_valid = match["valid"] & state.ref_has_landmark[ti]
-        pts3d = state.ref_landmarks[ti]
+        pair_valid = match["valid"] & take_rows(state.ref_has_landmark, ti, nb)
+        pts3d = take_rows(state.ref_landmarks, ti, nb)
         xy_norm = normalize_points(self.Kinv, feats.xy)
         T_pred = state.T_rel @ state.T_w2c
-        n = self.num_features
         if self.local_map:
             # Rotation-adaptive search window (see the JAX step): widen by
             # the pixel scale of the motion model's per-frame rotation.
             r0 = self.guided_radius_px
-            rot = rotation_angle(state.T_rel[:3, :3])
+            rot = rotation_angle(state.T_rel[..., :3, :3])
             radius = torch.clamp(r0 + self.K[0, 0] * rot, r0, 4.0 * r0)
             with record_function("guided_match"):
                 g = guided_match(
@@ -167,14 +179,14 @@ class TrackStep(nn.Module):
             # The cross-checked reference match wins where present; guided
             # pairs fill the keypoints it could not serve.
             guided_valid = g["valid"] & ~pair_valid
-            pts3d = torch.where(guided_valid[:, None], g["pts3d"], pts3d)
+            pts3d = torch.where(guided_valid[..., None], g["pts3d"], pts3d)
             pair_valid = guided_valid | pair_valid
         else:
-            guided_idx = torch.zeros(n, dtype=torch.int64, device=img.device)
-            guided_valid = torch.zeros(n, dtype=torch.bool, device=img.device)
+            guided_idx = torch.zeros(feats.valid.shape, dtype=torch.int64, device=img.device)
+            guided_valid = torch.zeros(feats.valid.shape, dtype=torch.bool, device=img.device)
         T, inliers = self.solve_pose(pts3d, xy_norm, pair_valid, T_pred, state.gen)
-        n_inl = inliers.sum()
-        ok = n_inl >= 6
+        n_inl = inliers.sum(-1)
+        ok = (n_inl >= 6)[..., None, None]
         T_new = torch.where(ok, T, T_pred)
         T_rel = torch.where(ok, T_new @ se3_inverse(state.T_w2c), state.T_rel)
         out = TrackOutput(
@@ -187,8 +199,8 @@ class TrackStep(nn.Module):
             pnp_inliers=inliers,
             guided_idx=guided_idx,
             guided_valid=guided_valid,
-            kp_z=torch.zeros(n, dtype=torch.float32, device=img.device),
-            kp_z_valid=torch.zeros(n, dtype=torch.bool, device=img.device),
+            kp_z=torch.zeros(feats.valid.shape, dtype=torch.float32, device=img.device),
+            kp_z_valid=torch.zeros(feats.valid.shape, dtype=torch.bool, device=img.device),
         )
         return state._replace(T_w2c=T_new, T_rel=T_rel), out
 
@@ -249,6 +261,21 @@ def _stack(items):
     if isinstance(items[0], tuple):
         return type(items[0])(*[_stack([it[i] for it in items]) for i in range(len(items[0]))])
     return torch.stack(items, dim=0)
+
+
+def stack_track_states(states) -> TrackState:
+    """B single-sequence states -> one batched state: every tensor leaf
+    stacked on a leading B, the B generators kept as a tuple (each sequence
+    goes on drawing from its own)."""
+    return TrackState(*[
+        tuple(leaves) if name == "gen" else None if leaves[0] is None else _stack(leaves)
+        for name, leaves in zip(TrackState._fields, zip(*states))
+    ])
+
+
+def split_track_outputs(out: TrackOutput) -> list[TrackOutput]:
+    """One batched ``TrackOutput`` -> the B single-sequence outputs (views)."""
+    return [tree_map(lambda x: x[b], out) for b in range(out.T_w2c.shape[0])]
 
 
 def make_track_chunk(track_step: TrackStep):
