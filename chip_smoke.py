@@ -12,7 +12,10 @@
    call, and the bound (bytes over the HBM rate or operations over the
    peak) with the share of it reached. The batched forms of K1, K2 and K3
    (the batched VO step's, B = 4 at the same shapes) likewise, each also
-   held at B = 1 to its one-sequence kernel.
+   held at B = 1 to its one-sequence kernel, and the batched K1 at the
+   stereo facade's B = 2 (its world's first pair). K1, K2 and K3 again at
+   the RGB-D facade's shapes: K1 on its world's first frame (640x480) at
+   1000 features, K2 at 1000 x 1000, K3 on its 2048-slot landmark block.
 4. Tracking path: the fused mono tracking step with a 4096-slot local-map
    arena, 2000 features, 4 levels, 128 RANSAC hypotheses, over a rendered
    376x1240 sprite world (f = 718.856) in two chunks of 8 frames. Checks
@@ -76,18 +79,49 @@
       ATE, closures, relocalizations, LOST frames, the final state, the
       loop detection funnel, K4 launches; fails unless both end OK after at
       least one relocalization and closures reach the JAX package's;
-   c. threaded: the deployment world through ``SLAM(threaded=True)``;
-      fails unless it ends OK with no failed thread step, ``shutdown()``
-      returns within 30 s and the keyframe ATE is within twice a's gate;
+   c. threaded: the deployment world through ``SLAM(threaded=True)``,
+      THREADED_RUNS times (each thread interleaving is a new draw); every
+      run must have no failed thread step and a ``shutdown()`` within 30
+      s; a run fails with a LOST frame, a final state other than OK or a
+      keyframe ATE above twice a's gate, and the phase fails when more runs
+      fail than the JAX package's share of failed threaded runs allows;
    d. ``Processing``: an in-memory source of the deployment world's first
       16 frames with the KITTI P0 calibration; fails unless it ends OK with
       a pose for every frame after the bootstrap.
-9. Prints a JSON line of the kernels, then ``{"ok": true, "device": ...}``
+9. Stereo and RGB-D host facade (tests/depth_world.py), one JSON line per
+   run: a stereo pair at the stereo world's width through the detector as
+   one B = 2 batch against two single detects (keypoints exact, at least
+   PAIR_BIT_SHARE_MIN of the descriptor bits); then
+   a. stereo: bench_stereo_pipeline's world (48 pairs at 376x1240, the
+      KITTI rig's 0.54 m baseline) through ``SLAM`` with the deployment
+      settings, at the tracker's default RANSAC seed and DEPTH_SEEDS with
+      ``MonoTracking``, then once with the fused step;
+   b. RGB-D: TUM fr1's geometry (640x480, 1000 features), the JAX RGB-D
+      test's sprite world over 32 frames with metric depth maps, the same
+      runs;
+   each run classed (clean, LOST, scale jump on the metric keyframe ATE)
+   and printed with FPS after the bootstrap, host ms a frame by stage,
+   syncs a frame (default seed), the share of keypoint slots with a valid
+   depth, peak memory and K1-K4 launches. Per sensor it fails on more
+   failed runs than the fewer of the JAX package's and the port's CPU
+   count at these seeds (DEPTH_PORT_CPU_FAILED), a median metric ATE above
+   max(2 x JAX's median, 2.0 %), a clean run's fitted scale outside
+   DEPTH_SCALE_RANGE, a bootstrap after frame 0, a fused run that is not
+   clean, or launches that disagree with the run's
+   detects, matches and guided matches (K1 once a frame: for a stereo
+   pair, the batched K1);
+   c. ``Processing``: in-memory sources of each world's first 16 frames
+      (the stereo pairs with a KITTI P0/P1 calibration, the RGB-D frames
+      with their depth maps through ``get_depth``); fails unless each ends
+      OK, bootstraps on frame 0 and poses every frame.
+10. Prints a JSON line of the kernels, then ``{"ok": true, "device": ...}``
    as the last line. Any failure raises and exits nonzero.
 
 K5 has no caller in either package: only phase 3 launches it. The
-kernels' launch counts add up the tracking, loop, full-pipeline and facade
-phases; the batched rows' count the batched VO phase's batched steps.
+kernels' launch counts add up the tracking, loop, full-pipeline, facade and
+stereo facade phases; the batched rows' count the batched VO phase's
+batched steps, the B = 2 row's the stereo phases' pairs, and the RGB-D
+rows' the RGB-D phases' launches (each at least one).
 """
 from __future__ import annotations
 
@@ -156,6 +190,44 @@ FACADE_KF_ATE_PCT_MAX, FACADE_FRAME_ATE_PCT_MAX = 2.0, 3.142
 FACADE_KF_RANGE = (17, 29)
 FACADE_JUMP_PCT, FACADE_JAX_FAILED_RUNS = 5.0, 2
 ENDURANCE_JAX_CLOSURES, ENDURANCE_JAX_ON_BELOW_OFF = 0, False
+# Threaded facade (the deployment world, SLAM(threaded=True)): the JAX
+# package's 8 CPU runs (scripts/depth_facade_reference.py --world
+# deploy-threaded --reps 8) failed 3: two ended LOST (29 and 12 LOST frames,
+# keyframe ATE 5.746 and 0.786 %), one relocalized after 2 LOST frames
+# (0.241 %); the five clean runs ended at 0.152-0.897 %. A run here fails
+# as those did, or above twice FACADE_KF_ATE_PCT_MAX; of THREADED_RUNS runs
+# at most ceil(3 x 3/8) = 2 may.
+THREADED_RUNS, THREADED_JAX_FAILED, THREADED_JAX_RUNS = 3, 3, 8
+THREADED_FAILED_MAX = -(-THREADED_RUNS * THREADED_JAX_FAILED // THREADED_JAX_RUNS)
+# Stereo and RGB-D facade (tests/depth_world.py), at the tracker's default
+# RANSAC seed (13) and seeds 0-3, then the fused step at the default seed.
+# The JAX package's CPU runs of the same worlds and seeds
+# (scripts/depth_facade_reference.py): stereo, 5 clean runs, metric keyframe
+# ATE (no scale alignment) 0.765-0.923 % of the path (median 0.788 %),
+# fitted scale 0.987-0.992, 13 keyframes, depth on 0.306 of the keypoint
+# slots; fused clean at 0.775 %. RGB-D: all 5 runs LOST in the world's last
+# 1-6 frames (guided inliers fall to 47-57 of ~222, under the 0.25 ratio),
+# metric ATE 1.202-1.297 % (median 1.236 %), fitted scale 1.036-1.039,
+# depth on 0.926 of the slots; fused LOST the same way (1.233 %). The port's
+# CPU runs of the same worlds and seeds (the same script, --impl torch; the
+# kernels' plain versions) fail none, fused or not. Gates per sensor: failed
+# runs (LOST, or a scale jump: metric keyframe ATE above FACADE_JUMP_PCT) at
+# most the fewer of JAX's and the port's CPU count at these seeds (0 for
+# both sensors: JAX's 5 of 5 on the RGB-D world would let every run fail);
+# median metric ATE at most max(2 x JAX's median, 2.0 %); every clean run's
+# fitted scale in DEPTH_SCALE_RANGE; the bootstrap on frame 0; the fused run
+# clean.
+DEPTH_SEEDS = (0, 1, 2, 3)
+STEREO_FRAMES, RGBD_FRAMES, DEPTH_PROCESSING_FRAMES = 48, 32, 16
+DEPTH_JAX = {"stereo": {"failed": 0, "median_pct": 0.788, "fused_clean": True, "kp_z_valid_frac": 0.3058},
+             "rgbd": {"failed": 5, "median_pct": 1.236, "fused_clean": False, "kp_z_valid_frac": 0.9264}}
+DEPTH_PORT_CPU_FAILED = {"stereo": 0, "rgbd": 0}
+# Host ms a frame in detect of the mono facade's deploy run at seed 13 on an
+# NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 5), printed beside the
+# stereo and RGB-D runs' own.
+MONO_FACADE_DETECT_MS = 41.51
+DEPTH_SCALE_RANGE = (0.8, 1.25)
+PAIR_BIT_SHARE_MIN = 0.999  # a stereo pair's batched descriptors against two single detects
 # Batched VO (parallel.make_batched_vo, BASELINE config 5): bench_multiseq's
 # 4 sequences, its 30 timed steps after one warm-up over 4 distinct batches,
 # at bench.py's 2000 features and config 5's 4000.
@@ -323,16 +395,16 @@ def hamming_fixture(np, rng, n):
     return d1, d2, rng.random(n) > 0.1, rng.random(n) > 0.05
 
 
-def guided_fixture(np, rng, M, n, radius):
-    """K3's inputs: an arena of M landmarks over the image with landmark
-    ties, n keypoints, each planted within 20 px of a landmark with a near
+def guided_fixture(np, rng, M, n, radius, width=W, height=H):
+    """K3's inputs: an arena of M landmarks over a ``width`` x ``height``
+    image with landmark ties, n keypoints, each planted within 20 px of a landmark with a near
     descriptor, ~20 % landmarks and ~5 % keypoints invalid: (lm_desc
     int32, lm_ok, lm_uv, kp_desc int32, kp_valid, kp_xy), and the valid
     pairs inside ``radius``."""
-    lm_uv = np.stack([rng.uniform(0, W, M), rng.uniform(0, H, M)], 1).astype(np.float32)
+    lm_uv = np.stack([rng.uniform(0, width, M), rng.uniform(0, height, M)], 1).astype(np.float32)
     lm_desc = rng.integers(0, 2**32, (M, 8), dtype=np.uint64).astype(np.uint32)
     lm_desc[1:M // 10:2] = lm_desc[0:M // 10 - 1:2]  # landmark ties
-    kp_xy = np.stack([rng.uniform(0, W, n), rng.uniform(0, H, n)], 1).astype(np.float32)
+    kp_xy = np.stack([rng.uniform(0, width, n), rng.uniform(0, height, n)], 1).astype(np.float32)
     kp_desc = rng.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32)
     for j in range(0, 2 * n, 2):
         kp_desc[j // 2] = lm_desc[j] ^ (rng.random(8) < 0.04).astype(np.uint32)
@@ -344,101 +416,117 @@ def guided_fixture(np, rng, M, n, radius):
     return (lm_desc.view(np.int32), lm_ok, lm_uv, kp_desc.view(np.int32), kp_valid, kp_xy), in_radius
 
 
-def check_kernels(torch, np, frame, K):
-    """Each kernel against its plain version on the card, at main-path
-    shapes, then timed (``kernel_row``); returns the rows of the kernels
-    JSON (launches filled later)."""
-    from visual_slam_tpu_torch.ops import match_kernels as mk
+def k1_levels_row(torch, np, frame, n_features, name="patches_and_moments_levels"):
+    """K1 on the N_LEVELS levels of ``frame`` with ``n_features``' level
+    quotas, in one launch as detect_and_describe makes it, against its plain
+    version (patches exact, moments within MOMENT_RTOL), then timed: its row
+    of the kernels JSON."""
     from visual_slam_tpu_torch.ops import orb, pyramid
     from visual_slam_tpu_torch.ops.detector import detect_level, level_quotas
-    from visual_slam_tpu_torch.ops.patch_kernels import (
-        extract_patches32,
-        extract_patches32_ref,
-        patches_and_moments_levels,
-        patches_and_moments_levels_ref,
-    )
+    from visual_slam_tpu_torch.ops.patch_kernels import patches_and_moments_levels, patches_and_moments_levels_ref
 
     dev = torch.device("cuda")
-    rows = []
-    none_k1 = "no single PyTorch call gives the disk-masked moments and the windows together"
-    none_top2 = "no single PyTorch call gives the top-2, the argbest and the column argmin"
-
-    # K1 on the four levels of a rendered frame, K_l = 643/537/447/373, in
-    # one launch as detect_and_describe makes it.
-    img = torch.from_numpy(frame).to(dev)
+    img = torch.from_numpy(np.ascontiguousarray(frame, np.float32)).to(dev)
     w = torch.from_numpy(orb.MOMENT_W_NP).to(dev)
     levels = [lvl.contiguous() for lvl in pyramid.build_pyramid(img, N_LEVELS, 1.2)]
-    yxs = [detect_level(lvl, k, 20.0, GRID, 16)[0] for lvl, k in zip(levels, level_quotas(N_FEATURES, N_LEVELS, 1.2))]
+    yxs = [detect_level(lvl, k, 20.0, GRID, 16)[0] for lvl, k in zip(levels, level_quotas(n_features, N_LEVELS, 1.2))]
     k1_args = (levels, [pyramid.gaussian_blur(lvl) for lvl in levels], yxs, w)
     mom, pat = patches_and_moments_levels(*k1_args)
     mom_r, pat_r = patches_and_moments_levels_ref(*k1_args)
     torch.cuda.synchronize()
     if not torch.equal(pat, pat_r):
-        raise AssertionError("K1: patches differ from the plain version")
+        raise AssertionError(f"{name}: patches differ from the plain version")
     raw = torch.cat([orb.extract_patches(lvl, yx) for lvl, yx in zip(levels, yxs)])
     scale = raw.reshape(raw.shape[0], -1).abs().double() @ w.abs().double()
     diff = (mom - mom_r).abs().double()
     if not bool((diff <= MOMENT_RTOL * scale).all()):
-        raise AssertionError(f"K1: moments off by {float(diff.max())} (tolerance {MOMENT_RTOL} of sum |w*p|)")
+        raise AssertionError(f"{name}: moments off by {float(diff.max())} (tolerance {MOMENT_RTOL} of sum |w*p|)")
     err = float(diff.max())
-    log(f"K1 levels {[tuple(lvl.shape) for lvl in levels]} keypoints {[int(yx.shape[0]) for yx in yxs]}, one launch: "
-        f"patches exact, moments max abs err {err}")
+    log(f"{name}: levels {[tuple(lvl.shape) for lvl in levels]} keypoints {[int(yx.shape[0]) for yx in yxs]}, one "
+        f"launch: patches exact, moments max abs err {err}")
     n_kp = sum(int(yx.shape[0]) for yx in yxs)
     # Bytes: the raw and blurred pixels the windows touch, yx in, 961 floats
     # of patch and 2 of moments out per keypoint; operations: a multiply-add
     # for each nonzero moment weight (the disk's pixels off its axes).
     k1_bytes = (sum(2 * 4 * touched(torch, tuple(lvl.shape), yx) for lvl, yx in zip(levels, yxs))
                 + n_kp * (8 + 961 * 4 + 8))
-    rows.append(kernel_row(
-        "patches_and_moments_levels", "visual_slam_tpu_torch/csrc/patches_moments.cu",
-        "visual_slam_tpu/ops/pallas_patches.py:144",
+    return kernel_row(
+        name, "visual_slam_tpu_torch/csrc/patches_moments.cu", "visual_slam_tpu/ops/pallas_patches.py:144",
         lambda: patches_and_moments_levels(*k1_args), lambda: patches_and_moments_levels_ref(*k1_args),
-        err, bound(k1_bytes, {"fp32": n_kp * 2 * int(np.count_nonzero(orb.MOMENT_W_NP))}), library_note=none_k1))
+        err, bound(k1_bytes, {"fp32": n_kp * 2 * int(np.count_nonzero(orb.MOMENT_W_NP))}),
+        library_note="no single PyTorch call gives the disk-masked moments and the windows together")
 
-    # K2 at 2000 x 2000 with planted ties and 10% invalid rows.
-    rng = np.random.default_rng(1)
-    n = N_FEATURES
-    near, ties = 2 * n // 5, n // 20  # K4's fixture below plants as many
+
+def k2_row(torch, np, rng, n, name="hamming_top2"):
+    """K2 at ``n`` x ``n`` with planted ties and 10% invalid rows against its
+    plain version (exact), then timed: its row of the kernels JSON."""
+    from visual_slam_tpu_torch.ops import match_kernels as mk
+
+    dev = torch.device("cuda")
     d1, d2, v1, v2 = hamming_fixture(np, rng, n)
     args = [torch.from_numpy(d1.view(np.int32)).to(dev), torch.from_numpy(d2.view(np.int32)).to(dev),
             torch.from_numpy(v1).to(dev), torch.from_numpy(v2).to(dev)]
     out = mk.hamming_top2(*args)
     ref = mk.hamming_top2_ref(*args)
     torch.cuda.synchronize()
-    for name, a, b in zip(("best", "second", "argbest", "col_argmin"), out, ref):
+    for field, a, b in zip(("best", "second", "argbest", "col_argmin"), out, ref):
         if not torch.equal(a, b):
-            raise AssertionError(f"K2: {name} differs from the plain version")
-    log(f"K2 {n}x{n}: exact ({int(v1.sum())} valid queries)")
+            raise AssertionError(f"{name}: {field} differs from the plain version")
+    log(f"{name} at {n}x{n}: exact ({int(v1.sum())} valid queries)")
     # Operations: 2*256 int8 multiply-adds of the bit product for each pair
     # of a valid row and a valid column (an invalid pair needs no distance);
     # bytes: the packed descriptors and masks in, best/second/argbest and
     # the column argmin out.
-    rows.append(kernel_row(
-        "hamming_top2", "visual_slam_tpu_torch/csrc/hamming_top2.cu", "visual_slam_tpu/ops/pallas_kernels.py:99",
+    return kernel_row(
+        name, "visual_slam_tpu_torch/csrc/hamming_top2.cu", "visual_slam_tpu/ops/pallas_kernels.py:99",
         lambda: mk.hamming_top2(*args), lambda: mk.hamming_top2_ref(*args), 0.0,
         bound(2 * n * 33 + n * 12 + n * 4, {"int8_tc": 2 * 256 * int(v1.sum()) * int(v2.sum())}),
-        library_note=none_top2))
+        library_note="no single PyTorch call gives the top-2, the argbest and the column argmin")
 
-    # K3 at 4096 landmarks x 2000 keypoints, matches planted inside the radius.
-    M = ARENA
-    fixture, in_radius = guided_fixture(np, rng, M, n, 25.0)
+
+def k3_row(torch, np, rng, M, n, name="guided_top2", size=(W, H)):
+    """K3 at ``M`` landmarks x ``n`` keypoints over an image of ``size``,
+    matches planted inside a 25 px radius, against its plain version
+    (exact), then timed: its row of the kernels JSON."""
+    from visual_slam_tpu_torch.ops import match_kernels as mk
+
+    dev = torch.device("cuda")
+    fixture, in_radius = guided_fixture(np, rng, M, n, 25.0, *size)
     args = [torch.from_numpy(a).to(dev) for a in fixture] + [torch.tensor(25.0 * 25.0, device=dev)]
     lm_idx, valid = mk.guided_top2(*args)
     r_idx, r_valid = mk.guided_top2_ref(*args)
     torch.cuda.synchronize()
     if not (torch.equal(valid, r_valid) and torch.equal(lm_idx, r_idx)):
-        raise AssertionError("K3: lm_idx/valid differ from the plain version")
+        raise AssertionError(f"{name}: lm_idx/valid differ from the plain version")
     if int(r_valid.sum()) < n // 10:
-        raise AssertionError(f"K3 fixture matched only {int(r_valid.sum())} keypoints")
+        raise AssertionError(f"{name}: the fixture matched only {int(r_valid.sum())} keypoints")
     # Operations: M*K gate tests at 5 fp32 operations, and the Hamming
     # distance of each valid pair inside the radius as a bit product, 2*256
     # int8 multiply-adds on the tensor cores.
-    log(f"K3 {M}x{n}: exact ({int(r_valid.sum())} keypoints matched, {in_radius} valid pairs inside the radius)")
-    rows.append(kernel_row(
-        "guided_top2", "visual_slam_tpu_torch/csrc/guided_top2.cu", "visual_slam_tpu/ops/pallas_kernels.py:250",
+    log(f"{name} at {M}x{n}: exact ({int(r_valid.sum())} keypoints matched, {in_radius} valid pairs inside the radius)")
+    return kernel_row(
+        name, "visual_slam_tpu_torch/csrc/guided_top2.cu", "visual_slam_tpu/ops/pallas_kernels.py:250",
         lambda: mk.guided_top2(*args), lambda: mk.guided_top2_ref(*args), 0.0,
         bound((M + n) * (32 + 1 + 8) + 4 + n * 5, {"fp32": M * n * 5, "int8_tc": in_radius * 2 * 256}),
-        library_note="no single PyTorch call gives the gated top-2 and the per-keypoint landmark argmin"))
+        library_note="no single PyTorch call gives the gated top-2 and the per-keypoint landmark argmin")
+
+
+def check_kernels(torch, np, frame, K):
+    """Each kernel against its plain version on the card, at main-path
+    shapes, then timed (``kernel_row``); returns the rows of the kernels
+    JSON (launches filled later)."""
+    from visual_slam_tpu_torch.ops import match_kernels as mk
+    from visual_slam_tpu_torch.ops.patch_kernels import extract_patches32, extract_patches32_ref
+
+    dev = torch.device("cuda")
+    img = torch.from_numpy(frame).to(dev)
+    none_top2 = "no single PyTorch call gives the top-2, the argbest and the column argmin"
+    # K1 on the four levels of a rendered frame (K_l = 643/537/447/373 at
+    # 2000 features), K2 at 2000 x 2000, K3 at 4096 landmarks x 2000.
+    rng = np.random.default_rng(1)
+    n = N_FEATURES
+    near, ties = 2 * n // 5, n // 20  # as many as hamming_fixture plants
+    rows = [k1_levels_row(torch, np, frame, n), k2_row(torch, np, rng, n), k3_row(torch, np, rng, ARENA, n)]
 
     # K4 at query 2000 x 64 candidate blocks of 2000: 8 real blocks with
     # planted near-duplicates, row and column ties and ~10% invalid rows,
@@ -504,12 +592,11 @@ def check_kernels(torch, np, frame, K):
     return rows
 
 
-def check_batched_kernels(torch, np, frames):
-    """The batched forms of K1, K2 and K3 (the batched VO step's) against
-    their plain versions on the card at B = MS_B and the main path's shapes,
-    each also at B = 1 against its one-sequence kernel, then timed
-    (``kernel_row``); returns their rows of the kernels JSON."""
-    from visual_slam_tpu_torch.ops import match_kernels as mk
+def batched_k1_row(torch, np, frames, name="patches_and_moments_batched"):
+    """The batched K1 on the four levels of ``frames`` (B frames, stacked as
+    the batched detect stacks them: one launch for all frames and levels)
+    against its plain version, at B = 1 against the one-frame kernel, then
+    timed: its row of the kernels JSON."""
     from visual_slam_tpu_torch.ops import orb, pyramid
     from visual_slam_tpu_torch.ops.detector import detect_level, level_quotas
     from visual_slam_tpu_torch.ops.patch_kernels import (
@@ -519,11 +606,7 @@ def check_batched_kernels(torch, np, frames):
     )
 
     dev = torch.device("cuda")
-    rows = []
     Bn = len(frames)
-
-    # K1 on the four levels of MS_B rendered frames, stacked as the batched
-    # detect stacks them: one launch for all frames and levels.
     imgs = torch.from_numpy(np.stack(frames)).to(dev)
     w = torch.from_numpy(orb.MOMENT_W_NP).to(dev)
     levels = [lvl.contiguous() for lvl in pyramid.build_pyramid(imgs, N_LEVELS, 1.2)]
@@ -550,12 +633,41 @@ def check_batched_kernels(torch, np, frames):
         f"err {err}; B = 1 equals the one-frame kernel bit for bit")
     k1_bytes = (sum(2 * 4 * touched(torch, tuple(lvl.shape[1:]), yx[b]) for lvl, yx in zip(levels, yxs)
                     for b in range(Bn)) + n_kp * (8 + 961 * 4 + 8))
-    rows.append(kernel_row(
-        "patches_and_moments_batched", "visual_slam_tpu_torch/csrc/patches_moments.cu",
+    return kernel_row(
+        name, "visual_slam_tpu_torch/csrc/patches_moments.cu",
         "visual_slam_tpu/ops/pallas_patches.py:144",
         lambda: patches_and_moments_batched(*args), lambda: patches_and_moments_batched_ref(*args), err,
         bound(k1_bytes, {"fp32": n_kp * 2 * int(np.count_nonzero(orb.MOMENT_W_NP))}),
-        library_note="no single PyTorch call gives the disk-masked moments and the windows together"))
+        library_note="no single PyTorch call gives the disk-masked moments and the windows together")
+
+
+def check_rgbd_kernels(torch, np, frame, n_features):
+    """K1, K2 and K3 at the RGB-D facade's shapes, each against its plain
+    version, then timed: K1 on the levels of ``frame`` (the RGB-D world's
+    first frame) at the ``n_features`` budget, K2 at that budget squared
+    (the tracker's match), K3 on the landmark block that budget gives
+    (``Tracking._local_landmark_block``: max(2048, 2 x the budget) slots).
+    Returns their rows of the kernels JSON."""
+    h, w = frame.shape
+    n, arena = n_features, max(2048, 2 * n_features)
+    rng = np.random.default_rng(2)
+    return [k1_levels_row(torch, np, frame, n, f"patches_and_moments_levels, RGB-D {w}x{h}"),
+            k2_row(torch, np, rng, n, f"hamming_top2, RGB-D {n} x {n}"),
+            k3_row(torch, np, rng, arena, n, f"guided_top2, RGB-D {arena} x {n}", size=(w, h))]
+
+
+def check_batched_kernels(torch, np, frames):
+    """The batched forms of K1, K2 and K3 (the batched VO step's) against
+    their plain versions on the card at B = MS_B and the main path's shapes,
+    each also at B = 1 against its one-sequence kernel, then timed
+    (``kernel_row``); returns their rows of the kernels JSON."""
+    from visual_slam_tpu_torch.ops import match_kernels as mk
+
+    dev = torch.device("cuda")
+    rows = []
+    Bn = len(frames)
+
+    rows.append(batched_k1_row(torch, np, frames))
 
     # K2 paired: MS_B pairs at 2000 x 2000, each with planted near matches,
     # row and column ties and ~10% invalid rows, as check_kernels' K2.
@@ -1291,6 +1403,7 @@ def facade_counters(slam, seen, stage_ms, timing):
     milliseconds to ``stage_ms``. Keyframe creation holds local mapping
     (synchronous mode); the report subtracts it. Returns a function that
     undoes the module-level wrap."""
+    from visual_slam_tpu_torch import pipeline
     from visual_slam_tpu_torch.ops import guided_matching
 
     tr, lm, lh = slam.tracking, slam.local_mapping, slam.local_handler
@@ -1315,6 +1428,7 @@ def facade_counters(slam, seen, stage_ms, timing):
     wrap(tr, "_track_local_map", "local-map match")
     wrap(tr, "_optimize_pose", "PnP")
     wrap(tr, "_create_keyframe", "keyframe creation")
+    wrap(tr, "_measure_depth", "depth")
     wrap(lm, "process_keyframe", "local mapping")
     wrap(lh, "step", "local BA")
     if slam.loop_closing is not None:
@@ -1332,17 +1446,26 @@ def facade_counters(slam, seen, stage_ms, timing):
                          candidate=None if det is None else det["candidate"].keyframe_id))
             return det
         lc.detect = loop_detect
-    guided0 = guided_matching.guided_match
+    # Module and class level: the fused step (pipeline.FrameStep) detects
+    # through TrackStep.detect and matches through pipeline.guided_match.
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr in
+             ((guided_matching, "guided_match"), (pipeline, "guided_match"), (pipeline.TrackStep, "detect"))]
     wrap(guided_matching, "guided_match", None, "guided")
-    return lambda: setattr(guided_matching, "guided_match", guided0)
+    wrap(pipeline, "guided_match", None, "guided")
+    wrap(pipeline.TrackStep, "detect", "detect", "detect")
+    return lambda: [setattr(owner, attr, fn) for owner, attr, fn in saved]
 
 
-def facade_run(torch, np, dev, counters, frames, K, Ts_gt, cfg, threaded=False, sync_frames=0, ransac_seed=None):
+def facade_run(torch, np, dev, counters, frames, K, Ts_gt, cfg, threaded=False, sync_frames=0, ransac_seed=None,
+               baseline=0.0, frame_args=None):
     """One facade run over ``frames`` through ``SLAM.track``, the stages
     timed after the bootstrap; the host syncs counted by source line over
     the first ``sync_frames`` frames after it (those frames are left out of
     the timing). ``ransac_seed`` reseeds the tracker's RANSAC generator (13
-    by default). Returns (slam, report)."""
+    by default). A stereo or RGB-D run gives the camera's ``baseline`` and
+    ``frame_args(i)`` -> (images, depth) of frame i (``frames`` then holds
+    the left or gray images); it also reports the tracked frames' share of
+    keypoint slots with a valid depth. Returns (slam, report)."""
     import facade_world as fw
 
     from visual_slam_tpu_torch.camera import PinholeCamera
@@ -1352,27 +1475,33 @@ def facade_run(torch, np, dev, counters, frames, K, Ts_gt, cfg, threaded=False, 
     h, w = frames[0].shape
     gc.collect()  # the previous run's SLAM (its reference cycles hold device tensors)
     torch.cuda.reset_peak_memory_stats()
-    slam = SLAM(PinholeCamera(width=w, height=h, K=np.asarray(K, np.float64)), cfg, threaded=threaded, device=dev)
+    slam = SLAM(PinholeCamera(width=w, height=h, K=np.asarray(K, np.float64), baseline=baseline), cfg,
+                threaded=threaded, device=dev)
     if ransac_seed is not None:
         slam.tracking._gen.manual_seed(ransac_seed)
     seen, stage_ms, timing = collections.Counter(), collections.Counter(), {"on": False}
     unwrap = facade_counters(slam, seen, stage_ms, timing)
     for fn in counters:
         fn.launches = 0
-    states, relocs, poses, sync_at = [], 0, [], collections.Counter()
+    states, relocs, poses, sync_at, z_shares, guided_frames = [], 0, [], collections.Counter(), [], 0
     boot, t0, n_timed = None, None, 0
     for i, img in enumerate(frames):
+        images, depth = frame_args(i) if frame_args is not None else ([img], None)
         counting = boot is not None and i <= boot + sync_frames
         with (count_syncs(torch) if counting else contextlib.nullcontext()) as syncs:
-            info = slam.track([img], timestamp=i * fw.DT)
+            info = slam.track(images, timestamp=i * fw.DT, depth=depth)
             if counting:
                 torch.cuda.synchronize()
         if counting:
             sync_at.update(syncs)
         states.append(info["state"])
         relocs += bool(info.get("relocalized"))
+        guided_frames += "n_guided" in info
         if info["state"] == "OK":
             poses.append((i * fw.DT, np.array(slam.tracking.last_frame.T_w2c)))
+            cur = slam.tracking.current_frame
+            if boot is not None and cur.kp_z_valid is not None:
+                z_shares.append(float((cur.kp_z_valid & cur.valid_mask(0)).mean()))
         if boot is None and info["state"] == "OK":
             boot = i
         if boot is not None and i == boot + sync_frames:
@@ -1408,21 +1537,26 @@ def facade_run(torch, np, dev, counters, frames, K, Ts_gt, cfg, threaded=False, 
         report["syncs_by_line"] = dict(sync_at.most_common(12))
     if "funnels" in seen:
         report["funnel"] = seen["funnels"]
+    report["guided_frames"] = guided_frames
+    if z_shares:
+        report["kp_z_valid_frac"] = float(np.mean(z_shares))
     return slam, report
 
 
-def check_facade_launches(name, r, tracked):
+def check_facade_launches(name, r, tracked, guided_frames=None):
     """Each kernel's launches equal the wrapper calls of the run: K1 one per
     detect, K2 one per match, K3 one per guided association, K4 one per
-    loop detect that reached the matcher. K1 and K3 run at least once per
-    tracked frame; K2 at least once per keyframe after the bootstrap pair
-    (local mapping matches each against its neighbours): a frame whose
-    guided association holds takes no brute K2 match, by design in both
-    packages."""
+    loop detect that reached the matcher. K1 runs at least once per tracked
+    frame, K3 once per frame that tried the guided association
+    (``guided_frames``; every tracked frame unless given); K2 at least once
+    per keyframe after the bootstrap pair (local mapping matches each
+    against its neighbours): a frame whose guided association holds takes
+    no brute K2 match, by design in both packages."""
     expected = [r["detects"], r["matches"], r["guided"], r["loop_matches"]]
     if r["launches"] != expected:
         raise AssertionError(f"{name}: launches K1-K4 {r['launches']} != the run's calls {expected}")
-    if r["launches"][0] < tracked or r["launches"][2] < tracked or r["launches"][1] < r["keyframes"] - 2:
+    guided_frames = tracked if guided_frames is None else guided_frames
+    if r["launches"][0] < tracked or r["launches"][2] < guided_frames or r["launches"][1] < r["keyframes"] - 2:
         raise AssertionError(f"{name}: K1/K2/K3 launched {r['launches'][:3]} times for {tracked} tracked frames and "
                              f"{r['keyframes']} keyframes")
 
@@ -1437,7 +1571,6 @@ def run_facade_phases(torch, np, dev, counters):
 
     from visual_slam_tpu_torch.config import Config
     from visual_slam_tpu_torch.io import DataSourceBase
-    from visual_slam_tpu_torch.processing import Processing
 
     total = [0] * len(counters)
 
@@ -1508,19 +1641,32 @@ def run_facade_phases(torch, np, dev, counters):
     if on["launches"][3] != on["loop_matches"] or on["loop_matches"] < 1:
         raise AssertionError(f"endurance: K4 launched {on['launches'][3]} times for {on['loop_matches']} detects")
 
-    # 3. Threaded: the deployment world with local mapping and BA on threads.
-    t0 = time.perf_counter()
-    slam, r = facade_run(torch, np, dev, counters, frames, K, Ts, fw.deploy_config(Config), threaded=True)
-    r["wall_s"] = time.perf_counter() - t0
-    add(r["launches"] + [0])
-    show("facade_threaded", r)
-    if r["state"] != "OK" or r["thread_failures"]:
-        raise AssertionError(f"threaded: final state {r['state']}, {r['thread_failures']} failed thread steps")
-    if r["shutdown_s"] > 30.0:
-        raise AssertionError(f"threaded: shutdown() took {r['shutdown_s']:.1f} s")
-    if r["ate_keyframes"]["pct"] > 2 * FACADE_KF_ATE_PCT_MAX:
-        raise AssertionError(f"threaded: keyframe ATE {r['ate_keyframes']['pct']:.3f} % above "
-                             f"{2 * FACADE_KF_ATE_PCT_MAX} %")
+    # 3. Threaded: the deployment world with local mapping and BA on
+    # threads, THREADED_RUNS times (each interleaving is a new draw). Every
+    # run: shutdown() within 30 s, no failed thread step. A run fails when
+    # it has a LOST frame after the bootstrap, ends in another state than OK
+    # or ends above the keyframe ATE gate; at most THREADED_FAILED_MAX may.
+    threaded = []
+    for _ in range(THREADED_RUNS):
+        t0 = time.perf_counter()
+        slam, r = facade_run(torch, np, dev, counters, frames, K, Ts, fw.deploy_config(Config), threaded=True)
+        r["wall_s"] = time.perf_counter() - t0
+        add(r["launches"] + [0])
+        kf_pct = r.get("ate_keyframes", {}).get("pct", float("inf"))
+        r["outcome"] = ("LOST" if r["lost_after_boot"] or r["state"] != "OK" else
+                        "ATE above gate" if kf_pct > 2 * FACADE_KF_ATE_PCT_MAX else "clean")
+        show("facade_threaded", r)
+        if r["thread_failures"]:
+            raise AssertionError(f"threaded: {r['thread_failures']} failed thread steps")
+        if r["shutdown_s"] > 30.0:
+            raise AssertionError(f"threaded: shutdown() took {r['shutdown_s']:.1f} s")
+        threaded.append(r["outcome"])
+    failed = [o for o in threaded if o != "clean"]
+    log(json.dumps({"phase": "facade_threaded_runs", "outcomes": threaded, "failed": len(failed),
+                    "failed_max": THREADED_FAILED_MAX}))
+    if len(failed) > THREADED_FAILED_MAX:
+        raise AssertionError(f"threaded: {len(failed)} of {THREADED_RUNS} runs failed {threaded}; at most "
+                             f"{THREADED_FAILED_MAX} may (the JAX package's share)")
 
     # 4. Processing over an in-memory source with the KITTI P0 calibration.
     class Frames(DataSourceBase):
@@ -1537,14 +1683,217 @@ def run_facade_phases(torch, np, dev, counters):
         def get_frame_shape(self):
             return self.imgs[0].shape
 
+    out, states = run_processing(torch, np, dev, counters, Frames(frames[:PROCESSING_FRAMES]), K,
+                                 fw.deploy_config(Config))
+    add([fn.launches for fn in counters][:4] + [0])
+    boot = next(i for i, (s, _) in enumerate(states) if s == "OK")
+    posed = [T is not None and np.isfinite(T).all() for _, T in states[boot:]]
+    log(json.dumps({"phase": "processing", **out, "boot_frame": boot, "posed_after_boot": int(sum(posed)),
+                    "launches": [fn.launches for fn in counters][:4]}))
+    if out["state"] != "OK" or out["frames"] != PROCESSING_FRAMES or not all(posed):
+        raise AssertionError(f"processing: {out}, poses after the bootstrap {posed}")
+    return total
+
+
+class LaunchSum:
+    """Two kernel wrappers' launch counts as one: K1 launches through
+    ``patches_and_moments_levels`` (one frame) or ``patches_and_moments_batched``
+    (a stereo pair as one B = 2 batch). Setting ``launches`` sets both."""
+
+    def __init__(self, *fns):
+        self.fns = fns
+
+    @property
+    def launches(self) -> int:
+        return sum(fn.launches for fn in self.fns)
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        for fn in self.fns:
+            fn.launches = n
+
+
+def check_stereo_pair(torch, np, dev, left, right):
+    """A stereo pair through the detector as one B = 2 batch (the facade's
+    detect) against two single detects on the card, at the stereo phase's
+    width: keypoints (positions, octaves, sizes, validity) exact, responses
+    and angles within 1e-5 (the pyramid's resize GEMMs may round a batch
+    otherwise), at least PAIR_BIT_SHARE_MIN of the valid descriptor bits
+    equal."""
+    from visual_slam_tpu_torch.frontend.features import FastOrbFeature2D
+    from visual_slam_tpu_torch.ops.orb import unpack_bits
+
+    det = FastOrbFeature2D(num_features=N_FEATURES, n_levels=N_LEVELS, device=dev)
+    pair = det.detectAndCompute(np.stack([left, right]).astype(np.float32))
+    shares = []
+    for b, img in enumerate((left, right)):
+        one = det.detectAndCompute(img)
+        for name in ("xy", "octave", "size", "valid"):
+            if not torch.equal(getattr(pair, name)[b], getattr(one, name)):
+                raise AssertionError(f"stereo pair: batched {name} of camera {b} differs from a single detect")
+        for name in ("response", "angle"):
+            torch.testing.assert_close(getattr(pair, name)[b], getattr(one, name), rtol=1e-5, atol=1e-5)
+        ok = one.valid
+        shares.append(float((unpack_bits(pair.desc[b])[ok] == unpack_bits(one.desc)[ok]).to(torch.float32).mean()))
+    log(json.dumps({"phase": "stereo_pair_detect", "valid_keypoints": int(one.valid.sum()),
+                    "desc_bit_share": shares, "min_share": PAIR_BIT_SHARE_MIN}))
+    if min(shares) < PAIR_BIT_SHARE_MIN:
+        raise AssertionError(f"stereo pair: batched descriptors agree on {shares} of the bits")
+
+
+def run_depth_facade_phases(torch, np, dev, counters):
+    """The stereo and RGB-D host facade (``SLAM``) on the card: each sensor's
+    world at the default RANSAC seed and DEPTH_SEEDS with ``MonoTracking``,
+    then one fused run, each classed and printed; then ``Processing`` over
+    an in-memory source of each world. ``counters`` are the K1-K5 wrappers
+    (K1 a ``LaunchSum`` of the one-frame and batched wrappers). Returns, per
+    sensor, the launches summed over its phases by wrapper (``k1``, the
+    one-frame K1; ``k1_batched``; ``k2``; ``k3``; ``k4``); raises if a gate
+    fails."""
+    import depth_world as dw
+
+    from visual_slam_tpu_torch.config import Config
+    from visual_slam_tpu_torch.io import DataSourceBase
+    from visual_slam_tpu_torch.utils.metrics import ate_rmse
+
+    k1 = counters[0]
+    totals = {"stereo": collections.Counter(), "rgbd": collections.Counter()}
+
+    def add(sensor, r):
+        totals[sensor].update({"k1": r["k1_single"], "k1_batched": r["k1_batched"], "k2": r["launches"][1],
+                               "k3": r["launches"][2], "k4": r["launches"][3]})
+
+    t0 = time.perf_counter()
+    lefts, rights, sK, sTs = dw.stereo_frames(STEREO_FRAMES)
+    imgs, depths, rK, rTs = dw.rgbd_frames(RGBD_FRAMES)
+    log(f"rendered the stereo ({len(lefts)} pairs, {lefts[0].shape}) and RGB-D ({len(imgs)} frames, "
+        f"{imgs[0].shape}) worlds in {time.perf_counter() - t0:.2f} s")
+    check_stereo_pair(torch, np, dev, lefts[0], rights[0])
+    worlds = {
+        "stereo": (lefts, sK, sTs, dw.stereo_config, dw.STEREO_BASELINE, lambda i: ([lefts[i], rights[i]], None)),
+        "rgbd": (imgs, rK, rTs, dw.rgbd_config, 0.0, lambda i: ([imgs[i]], depths[i])),
+    }
+    for sensor, (frames, K, Ts, config, baseline, args) in worlds.items():
+        runs = []
+        for seed, fused in [(None, False)] + [(s, False) for s in DEPTH_SEEDS] + [(None, True)]:
+            cfg = config(Config)
+            cfg.tracking.fused_pipeline = fused
+            t0 = time.perf_counter()
+            sync = FACADE_SYNC if seed is None and not fused else 0  # the first run's syncs
+            slam, r = facade_run(torch, np, dev, counters, frames, K, Ts, cfg, sync_frames=sync, ransac_seed=seed,
+                                 baseline=baseline, frame_args=args)
+            r["wall_s"] = time.perf_counter() - t0
+            r["k1_single"], r["k1_batched"] = (fn.launches for fn in k1.fns)
+            r["fused"] = fused
+            r["ate_metric"] = dw.metric_ate(slam, Ts, ate_rmse)
+            r["outcome"] = dw.classify(r["lost_after_boot"], r["ate_metric"], FACADE_JUMP_PCT)
+            log(json.dumps({"phase": f"facade_{sensor}", **r}, default=float))
+            add(sensor, r)
+            # The one-frame bootstrap's landmarks carry no descriptors (as in
+            # the JAX package): until the first keyframe mints some, a
+            # MonoTracking frame has no guided association to try.
+            tracked = len(frames) - r["boot_frame"] - 1 - r["lost_after_boot"]
+            check_facade_launches(f"{sensor} facade", r, tracked, r["guided_frames"])
+            # K1 once per frame: the pair as one batch in stereo.
+            per_frame = (0, len(frames)) if sensor == "stereo" else (len(frames), 0)
+            if (r["k1_single"], r["k1_batched"]) != per_frame:
+                raise AssertionError(f"{sensor}: K1 launched {r['k1_single']} times alone and {r['k1_batched']} "
+                                     f"times batched over {len(frames)} frames, not {per_frame}")
+            if r["boot_frame"] != 0:
+                raise AssertionError(f"{sensor}: bootstrap on frame {r['boot_frame']}, not 0")
+            runs.append(r)
+        seeded, fused_run = runs[:-1], runs[-1]
+        failed = [(r["ransac_seed"], r["outcome"]) for r in seeded if r["outcome"] != "clean"]
+        pcts = [r["ate_metric"]["pct"] if r["ate_metric"] else float("inf") for r in seeded]
+        median = statistics.median(pcts)
+        jax = DEPTH_JAX[sensor]
+        failed_max = min(jax["failed"], DEPTH_PORT_CPU_FAILED[sensor])
+        median_max = max(2 * jax["median_pct"], 2.0)
+        log(json.dumps({"phase": f"facade_{sensor}_seeds", "ransac_seeds": [r["ransac_seed"] for r in seeded],
+                        "outcomes": [r["outcome"] for r in seeded], "ate_metric_pct": pcts,
+                        "scales": [r["ate_metric"] and r["ate_metric"]["scale"] for r in seeded],
+                        "failed_runs": failed, "jax_failed_runs": jax["failed"],
+                        "port_cpu_failed_runs": DEPTH_PORT_CPU_FAILED[sensor], "failed_max": failed_max,
+                        "median_ate_metric_pct": median,
+                        "median_max_pct": median_max, "fused_outcome": fused_run["outcome"],
+                        "jax_fused_clean": jax["fused_clean"], "fps_after_boot": runs[0]["fps_after_boot"],
+                        "detect_ms_per_frame": runs[0].get("host_ms_per_frame", {}).get("detect"),
+                        "mono_facade_detect_ms": MONO_FACADE_DETECT_MS,
+                        "syncs_per_frame": runs[0].get("syncs_per_frame"),
+                        "kp_z_valid_frac": runs[0].get("kp_z_valid_frac"),
+                        "jax_kp_z_valid_frac": jax["kp_z_valid_frac"],
+                        "peak_mib": max(r["peak_mib"] for r in runs)}, default=float))
+        if len(failed) > failed_max:
+            raise AssertionError(f"{sensor}: {len(failed)} of {len(seeded)} seeded runs failed {failed}; at these "
+                                 f"seeds the JAX package fails {jax['failed']}, the port on the CPU "
+                                 f"{DEPTH_PORT_CPU_FAILED[sensor]}")
+        if median > median_max:
+            raise AssertionError(f"{sensor}: median metric keyframe ATE {median:.3f} % above {median_max:.3f} %")
+        for r in runs:
+            if r["outcome"] == "clean" and not DEPTH_SCALE_RANGE[0] < r["ate_metric"]["scale"] < DEPTH_SCALE_RANGE[1]:
+                raise AssertionError(f"{sensor}: fitted scale {r['ate_metric']['scale']:.4f} outside "
+                                     f"{DEPTH_SCALE_RANGE}")
+        if fused_run["outcome"] != "clean":
+            raise AssertionError(f"{sensor}: the fused run is {fused_run['outcome']}, not clean")
+
+    # Processing over in-memory sources: KITTI's P0/P1 calibration with the
+    # stereo pairs; TUM1's K with the RGB-D frames and their depth maps.
+    class Frames(DataSourceBase):
+        def __init__(self, frames, depths=None):
+            self.frames, self.depths, self.i = frames, depths, 0
+
+        def get_frame(self):
+            self.i += 1
+            return self.frames[self.i - 1], (self.i - 1) * dw.DT
+
+        def get_depth(self, ts):
+            return self.depths[int(round(ts / dw.DT))]
+
+        def is_ok(self):
+            return self.i < len(self.frames)
+
+        def get_frame_shape(self):
+            f = self.frames[0]
+            return (f[0] if isinstance(f, list) else f).shape
+
+    n = DEPTH_PROCESSING_FRAMES
+    bf = dw.STEREO_BASELINE * sK[0, 0]
+    sources = {
+        "stereo": (Frames([[lefts[i], rights[i]] for i in range(n)]), sK, -bf, dw.stereo_config),
+        "rgbd": (Frames(imgs[:n], depths[:n]), rK, None, dw.rgbd_config),
+    }
+    for sensor, (source, K, p1, config) in sources.items():
+        out, states = run_processing(torch, np, dev, counters, source, K, config(Config), p1)
+        r = {"k1_single": k1.fns[0].launches, "k1_batched": k1.fns[1].launches,
+             "launches": [fn.launches for fn in counters][:4]}
+        add(sensor, r)
+        boot = next((i for i, (s, _) in enumerate(states) if s == "OK"), None)
+        posed = [T is not None and np.isfinite(T).all() for _, T in states[boot or 0:]]
+        log(json.dumps({"phase": f"processing_{sensor}", **out, "boot_frame": boot, "posed_after_boot": int(sum(posed)),
+                        "launches": r["launches"], "k1_single": r["k1_single"], "k1_batched": r["k1_batched"]}))
+        if out["state"] != "OK" or boot != 0 or out["frames"] != n or not all(posed):
+            raise AssertionError(f"processing ({sensor}): {out}, bootstrap on frame {boot}, poses {posed}")
+    return totals
+
+
+def run_processing(torch, np, dev, counters, source, K, cfg, p1_tx=None):
+    """``Processing`` over ``source`` with a KITTI ``calib.txt`` holding K as
+    P0 and, for stereo, P1 with ``p1_tx`` (-baseline x fx) as its fourth
+    entry. Returns (run()'s result, (state, T_w2c or None) per frame); the
+    counters are zeroed first."""
     import tempfile
+
+    from visual_slam_tpu_torch.processing import Processing
 
     for fn in counters:
         fn.launches = 0
     with tempfile.TemporaryDirectory(dir=ROOT) as d:
         calib = Path(d) / "calib.txt"
-        calib.write_text(f"P0: {K[0, 0]} 0 {K[0, 2]} 0 0 {K[1, 1]} {K[1, 2]} 0 0 0 1 0\n")
-        proc = Processing(Frames(frames[:PROCESSING_FRAMES]), calib, fw.deploy_config(Config), device=dev)
+        rows = [f"P0: {K[0, 0]} 0 {K[0, 2]} 0 0 {K[1, 1]} {K[1, 2]} 0 0 0 1 0"]
+        if p1_tx is not None:
+            rows.append(f"P1: {K[0, 0]} 0 {K[0, 2]} {p1_tx} 0 {K[1, 1]} {K[1, 2]} 0 0 0 1 0")
+        calib.write_text("\n".join(rows) + "\n")
+        proc = Processing(source, calib, cfg, device=dev)
     slam = proc.slam
     states = []
     track = slam.track
@@ -1557,14 +1906,7 @@ def run_facade_phases(torch, np, dev, counters):
     slam.track = track_logged
     out = proc.run()
     torch.cuda.synchronize()
-    add([fn.launches for fn in counters][:4] + [0])
-    boot = next(i for i, (s, _) in enumerate(states) if s == "OK")
-    posed = [T is not None and np.isfinite(T).all() for _, T in states[boot:]]
-    log(json.dumps({"phase": "processing", **out, "boot_frame": boot, "posed_after_boot": int(sum(posed)),
-                    "launches": [fn.launches for fn in counters][:4]}))
-    if out["state"] != "OK" or out["frames"] != PROCESSING_FRAMES or not all(posed):
-        raise AssertionError(f"processing: {out}, poses after the bootstrap {posed}")
-    return total
+    return out, states
 
 
 def run_pose_graphs(torch, np, dev):
@@ -1624,7 +1966,11 @@ def main() -> int:
 
     from visual_slam_tpu_torch import _build, pipeline
     from visual_slam_tpu_torch.ops import match_kernels as mk
-    from visual_slam_tpu_torch.ops.patch_kernels import extract_patches32, patches_and_moments_levels
+    from visual_slam_tpu_torch.ops.patch_kernels import (
+        extract_patches32,
+        patches_and_moments_batched,
+        patches_and_moments_levels,
+    )
 
     t0 = time.perf_counter()
     _build.build(force=True)
@@ -1636,6 +1982,16 @@ def main() -> int:
     log(f"rendered {len(frames)} frames {frames.shape[1:]} in {time.perf_counter() - t0:.2f} s")
 
     rows = check_kernels(torch, np, frames[1], K) + check_batched_kernels(torch, np, list(frames[1:1 + MS_B]))
+    # The batched K1 at the stereo facade's B = 2: the first pair of its world.
+    import depth_world as dw
+
+    lefts, rights, _, _ = dw.stereo_frames(1)
+    rows.append(batched_k1_row(torch, np, [lefts[0], rights[0]], "patches_and_moments_batched, B = 2 stereo pair"))
+    # K1, K2 and K3 at the RGB-D facade's shapes: its world's first frame.
+    from visual_slam_tpu_torch.config import Config
+
+    rgbd_rows = check_rgbd_kernels(torch, np, dw.rgbd_frames(1)[0][0], dw.rgbd_config(Config).feature.num_features)
+    rows += rgbd_rows
 
     dev = torch.device("cuda")
     kw = dict(num_features=N_FEATURES, n_levels=N_LEVELS, grid=GRID, pnp_hypotheses=N_HYP,
@@ -1732,14 +2088,25 @@ def main() -> int:
     loop_launches = run_loop_path(torch, np, step, dev, counters)
     fp_launches, _ = run_full_pipeline(torch, np, dev, counters)
     facade_launches = run_facade_phases(torch, np, dev, counters)
-    parts = list(zip(launches, loop_launches, fp_launches, facade_launches))
+    depth = run_depth_facade_phases(torch, np, dev, (LaunchSum(patches_and_moments_levels,
+                                                               patches_and_moments_batched), *counters[1:]))
+    stereo, rgbd = depth["stereo"], depth["rgbd"]
+    stereo_launches = [stereo["k1"], stereo["k2"], stereo["k3"], stereo["k4"], 0]
+    parts = list(zip(launches, loop_launches, fp_launches, facade_launches, stereo_launches))
     for row, part in zip(rows, parts):
         row["launches"] = sum(part)
     for row, n in zip(rows[len(parts):], multiseq_launches):
         row["launches"] = n
-    log("launches per kernel (tracking, loop path, full pipeline, facade phases): "
+    rows[len(parts) + len(multiseq_launches)]["launches"] = stereo["k1_batched"]  # the stereo pairs' K1
+    for row, key in zip(rgbd_rows, ("k1", "k2", "k3")):
+        row["launches"] = rgbd[key]
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']}: no launch in the RGB-D phases")
+    if rgbd["k1_batched"] or rgbd["k4"]:
+        raise AssertionError(f"RGB-D phases launched the batched K1 {rgbd['k1_batched']} and K4 {rgbd['k4']} times")
+    log("launches per kernel (tracking, loop path, full pipeline, facade phases, stereo facade phases): "
         f"{[(r['name'], *part) for r, part in zip(rows, parts)]}; K5 has no caller on any path; batched "
-        f"(multiseq phase): {[(r['name'], r['launches']) for r in rows[len(parts):]]}")
+        f"(multiseq phase; stereo phases) and RGB-D phases: {[(r['name'], r['launches']) for r in rows[len(parts):]]}")
 
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -83,12 +83,3 @@ def test_enforce_landmark_budget_same_ids(dense):
     tn = ts.local_mapping.enforce_landmark_budget(budget)
     assert tn == jn > 0
     assert sorted(p.id for p in ts.map.get_map_points()) == sorted(p.id for p in js.map.get_map_points())
-
-
-def test_stereo_and_rgbd_handlers_raise(world):
-    from visual_slam_tpu_torch.local_mapping import make_handler
-    from visual_slam_tpu_torch.sensor_type import SensorType
-
-    for sensor in (SensorType.STEREO, SensorType.RGBD):
-        with pytest.raises(NotImplementedError, match="M9"):
-            make_handler(sensor, None, fp.configs()[1], None, None, device="cpu")

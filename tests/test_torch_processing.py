@@ -116,8 +116,12 @@ def test_calibration_loaders(tmp_path):
     kitti.write_text("P0: 700 0 600 0 0 700 180 0 0 0 1 0\nP1: 700 0 600 -378 0 700 180 0 0 0 1 0\n")
     c = UniversalCalibration().load_from(kitti)
     assert c.mono.fx == 700 and c.stereo.baseline == pytest.approx(0.54) and c.stereo.is_rectified
-    with pytest.raises(NotImplementedError, match="M9"):
-        c.stereo.rectification()
+    from visual_slam_tpu.io.calibration import UniversalCalibration as JUniversalCalibration
+
+    jrect, rect = JUniversalCalibration().load_from(kitti).stereo.rectification(), c.stereo.rectification()
+    assert rect.keys() == jrect.keys() and rect["baseline"] == pytest.approx(jrect["baseline"], abs=1e-15)
+    for k in ("R1", "R2", "P1", "P2", "Q", "K_new"):
+        np.testing.assert_allclose(rect[k], jrect[k], rtol=0, atol=1e-12)
     ros = tmp_path / "cam.yaml"
     ros.write_text("image_width: 640\nimage_height: 480\ncamera_matrix: {rows: 3, cols: 3, data: "
                    "[500, 0, 320, 0, 500, 240, 0, 0, 1]}\ndistortion_coefficients: {rows: 1, cols: 5, data: "

@@ -175,8 +175,6 @@ def test_fused_pipeline_tracks():
 
 
 @pytest.mark.parametrize("section,key,value", [
-    ("camera", "sensor_type", "stereo"),
-    ("camera", "sensor_type", "rgbd"),
     ("optimization", "solver", "adam"),
     ("feature", "ragged_descriptors", True),
 ])

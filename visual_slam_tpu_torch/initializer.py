@@ -1,5 +1,5 @@
-"""Two-view monocular map initialization (port of the mono path of
-``visual_slam_tpu.initializer``).
+"""Map initialization (port of ``visual_slam_tpu.initializer``): the mono
+two-view bootstrap and the stereo and RGB-D one-frame metric bootstraps.
 
 Frame buffering, readiness gates (time gap, feature counts, grid
 coverage), the essential-matrix + triangulation chain with parallax and
@@ -8,7 +8,12 @@ promoted to the first two keyframes with median-depth scale normalization,
 landmarks with colors and observations, and a two-view BA polish. The
 geometric stages run on the features' device; the RANSAC draws come from
 one ``torch.Generator`` seeded with 7 (the JAX package's ``PRNGKey(7)``).
-The stereo and RGB-D single-frame bootstraps are not ported yet.
+
+Stereo and RGB-D need one frame: the left keypoints matched in the right
+image (``FeatureTracker.match``: kernel K2 and the fundamental filter),
+gated to the same row and a positive disparity, or looked up in the depth
+map, become metric landmarks; no parallax wait and no scale gauge. A
+stereo pair is detected as one B = 2 batch (one K1 launch).
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ from .map import Frame, KeyFrame, Map, MapPoint
 from .ops import epipolar as ep_ops
 from .ops import triangulation as tri_ops
 from .ops.projection import normalize_points
-from .tracking import _to_gray, undistort_features
+from .ops.stereo import backproject_np
+from .tracking import detect_frame_features, frame_images
 from .utils.tree import to_host
 
 
@@ -67,20 +73,75 @@ class Initializer:
         self._gen = torch.Generator(device=self.device).manual_seed(7)
 
     def add_frame(self, images, timestamp: float, depth=None) -> Frame:
-        images = list(images) if isinstance(images, (list, tuple)) else [images]
-        grays = [im if im.ndim == 2 else _to_gray(im) for im in images]
-        feats = [undistort_features(self.tracker.detectAndCompute(g), self.camera) for g in grays]
+        images, grays = frame_images(images, depth, self.config.camera.sensor_type)
+        feats = detect_frame_features(self.tracker, self.camera, grays)
         frame = Frame(images=images, images_gray=grays, features=feats, timestamp=timestamp, depth=depth)
         self.map.add_frame(frame)
         return frame
 
     def initialize(self, images, timestamp: float, depth=None) -> bool:
         sensor = self.config.camera.sensor_type
-        if sensor in ("stereo", "rgbd"):
-            raise NotImplementedError(f"the {sensor} initializer is not ported yet")
-        if sensor != "monocular":
+        boot = {"monocular": self._initialize_mono, "stereo": self._initialize_stereo,
+                "rgbd": self._initialize_rgbd}.get(sensor)
+        if boot is None:
             raise ValueError(f"unknown sensor type {sensor!r}")
-        return self._initialize_mono(self.add_frame(images, timestamp, depth))
+        return boot(self.add_frame(images, timestamp, depth))
+
+    def _initialize_stereo(self, frame: Frame) -> bool:
+        """Metric bootstrap from one stereo pair: left/right match, rectified
+        row gate (2 px) and disparity > 0.1 px, depth = bf / disparity inside
+        the initializer's depth range."""
+        fl, fr = frame.get_features(0), frame.get_features(1)
+        bf = float(getattr(self.camera, "bf", 0.0))
+        if fl is None or fr is None or bf <= 0:
+            return False
+        res = self.tracker.match(fl, fr)
+        ti, ok = to_host((res.train_idx, res.valid))
+        xy_l, xy_r = frame.keypoints(0), frame.keypoints(1)
+        slots = np.nonzero(ok)[0]
+        xl, xr = xy_l[slots], xy_r[ti[slots]]
+        disp = xl[:, 0] - xr[:, 0]
+        keep = (np.abs(xl[:, 1] - xr[:, 1]) <= 2.0) & (disp > 0.1)
+        z = bf / np.where(keep, disp, 1.0)
+        icfg = self.config.initialization
+        keep &= (icfg.min_depth < z) & (z < icfg.max_depth)
+        return self._bootstrap_keyframe(frame, slots[keep], z[keep], "stereo")
+
+    def _initialize_rgbd(self, frame: Frame) -> bool:
+        """Metric bootstrap from one depth frame: the depth map's pixel
+        nearest each valid keypoint, inside the initializer's depth range."""
+        if frame.get_features(0) is None or frame.depth is None:
+            return False
+        depth = frame.depth
+        H, W = depth.shape[:2]
+        slots = np.nonzero(frame.valid_mask(0))[0]
+        xy = frame.keypoints(0)[slots]
+        ui, vi = np.round(xy[:, 0]).astype(np.int64), np.round(xy[:, 1]).astype(np.int64)
+        keep = (ui >= 0) & (ui < W) & (vi >= 0) & (vi < H)
+        z = np.zeros(len(slots))
+        z[keep] = depth[vi[keep], ui[keep]]
+        icfg = self.config.initialization
+        keep &= (icfg.min_depth < z) & (z < icfg.max_depth)
+        return self._bootstrap_keyframe(frame, slots[keep], z[keep], "rgbd")
+
+    def _bootstrap_keyframe(self, frame: Frame, slots: np.ndarray, z: np.ndarray, kind: str) -> bool:
+        """The frame becomes the first keyframe with a landmark at each of
+        ``slots`` (camera 0 keypoints) at depth ``z``, if there are at least
+        ``min_inliers`` of them."""
+        if len(slots) < self.min_inliers:
+            return False
+        xy = frame.keypoints(0)
+        p_w = backproject_np(self.camera.Kinv, frame.R_c2w, frame.t_c2w, xy[slots], z)
+        kf = KeyFrame.from_frame(frame)
+        img = frame.get_image(0)
+        for i, p in zip(slots, p_w):
+            mp = MapPoint(p, color=_pixel_color(img, xy[i]))
+            kf.add_map_point(0, int(i), mp)
+            self.map.add_map_point(mp)
+        self.map.add_keyframe(kf)
+        self.logger.info("%s init: %d landmarks from one frame", kind, len(slots))
+        self.initialized = True
+        return True
 
     def _initialize_mono(self, frame_cur: Frame) -> bool:
         """Evaluates every buffered reference frame and initializes from the

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .backend.ba import BAProblem
-from .map import KeyFrame, Map, MapPoint
+from .map import Frame, KeyFrame, Map, MapPoint
 from .map.pose import Pose
 from .ops.detector import Features
 from .pipeline import PromoteRecord, TrackOutput, TrackState
@@ -126,30 +126,58 @@ def ba_problem_from_numpy(problem, device=None) -> BAProblem:
                      pose_fixed=_t(problem.pose_fixed, torch.bool, device))
 
 
+def _copy_depths(dst, src) -> None:
+    """The per-keypoint depths (``kp_z``, ``kp_z_valid``: stereo and RGB-D
+    frames) and the depth map of ``src``, where it has them, onto ``dst``."""
+    z, ok = getattr(src, "kp_z", None), getattr(src, "kp_z_valid", None)
+    if z is not None and ok is not None:
+        dst.kp_z, dst.kp_z_valid = np.array(_np(z), np.float32), np.array(_np(ok), bool)
+    if getattr(src, "depth", None) is not None:
+        dst.depth = np.asarray(src.depth)
+
+
 def keyframe_from_numpy(features, T_w2c, keyframe_id: int, frame_id: int | None = None,
-                        timestamp: float = 0.0, device=None) -> KeyFrame:
+                        timestamp: float = 0.0, device=None, depths=None) -> KeyFrame:
     """The port's ``KeyFrame`` with the given ids and pose, its feature
     blocks (one per camera, objects with the JAX ``Features`` fields) on
-    ``device``. A copy takes no new keyframe id from the class counter
-    (nor a frame id, when ``frame_id`` is given): loop closing's cooldown
-    reads the gaps between ids."""
-    return KeyFrame(features=[features_from_numpy(f, device) for f in features], timestamp=timestamp,
-                    pose=Pose(_np(T_w2c)), frame_id=frame_id, keyframe_id=keyframe_id)
+    ``device``, and the per-keypoint depths and depth map of ``depths`` (an
+    object with ``kp_z``, ``kp_z_valid``, ``depth``), if given. A copy takes
+    no new keyframe id from the class counter (nor a frame id, when
+    ``frame_id`` is given): loop closing's cooldown reads the gaps between
+    ids."""
+    kf = KeyFrame(features=[features_from_numpy(f, device) for f in features], timestamp=timestamp,
+                  pose=Pose(_np(T_w2c)), frame_id=frame_id, keyframe_id=keyframe_id)
+    if depths is not None:
+        _copy_depths(kf, depths)
+    return kf
+
+
+def frame_from_numpy(src, device=None) -> Frame:
+    """The port's ``Frame`` holding what a JAX ``Frame`` holds: its id,
+    timestamp, pose, images, every camera's feature block on ``device``,
+    the depth map and the per-keypoint depths (the carry-over of an
+    in-flight stereo or RGB-D frame)."""
+    frame = Frame(images=list(src.images), images_gray=list(src.images_gray),
+                  features=[features_from_numpy(f, device) for f in src.features], timestamp=src.timestamp,
+                  pose=Pose(_np(src.T_w2c)), frame_id=src.id)
+    _copy_depths(frame, src)
+    return frame
 
 
 def map_from_numpy(keyframes, points, device=None) -> Map:
     """The port's ``Map`` holding the same keyframes and landmarks as a JAX
     ``Map`` (``map_from_numpy(m.get_keyframes(), m.get_map_points())``), or
     as any objects with their fields: keyframes with ``keyframe_id``, ``id``,
-    ``timestamp``, ``T_w2c``, ``features`` and ``map_points`` ({(cam, kp):
-    point}); points with ``id``, ``position``, ``is_bad``, optionally
+    ``timestamp``, ``T_w2c``, ``features`` (every camera's), ``map_points``
+    ({(cam, kp): point}) and optionally ``kp_z``, ``kp_z_valid`` and
+    ``depth``; points with ``id``, ``position``, ``is_bad``, optionally
     ``descriptor``, and ``observations.items()`` ((kf_id, cam, kp) triples). Ids, insertion
     order, observations and keyframe links are kept, so host bookkeeping
     iterates in the same order in both packages."""
     m = Map()
     for src in keyframes:
         m.add_keyframe(keyframe_from_numpy(src.features, src.T_w2c, src.keyframe_id, frame_id=src.id,
-                                           timestamp=src.timestamp, device=device))
+                                           timestamp=src.timestamp, device=device, depths=src))
     def copy_point(src) -> MapPoint:
         desc = getattr(src, "descriptor", None)
         mp = MapPoint(_np(src.position), descriptor=None if desc is None else desc_to_int32(desc))
@@ -187,7 +215,7 @@ def install_slam_state(slam, keyframes, points, reference_keyframe_id: int, last
     ``gauge_version`` matches). The copy replaces the map in every component
     that holds it; state becomes OK and the id counters move past the
     copied ids. Returns the installed map."""
-    from .map.frame import Frame, FrameBase
+    from .map.frame import FrameBase
     from .state import State
 
     m = map_from_numpy(keyframes, points, device=slam.device)

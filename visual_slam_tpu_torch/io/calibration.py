@@ -3,10 +3,8 @@
 
 ``MonoCalibration`` (K, D, model), ``StereoCalibration`` (left/right, R, T,
 baseline, ``is_rectified``), ``UniversalCalibration`` dispatching on the
-file suffix and content. Rectifying a raw stereo rig
-(``StereoCalibration.rectification`` / ``rectify_images``, the JAX
-package's ``ops/rectify``) belongs to the stereo slice (ROADMAP M9) and
-raises ``NotImplementedError``.
+file suffix and content. ``StereoCalibration.rectification`` and
+``rectify_images`` rectify a raw stereo rig through ``ops.rectify``.
 """
 from __future__ import annotations
 
@@ -14,6 +12,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -53,10 +52,30 @@ class StereoCalibration:
         )
 
     def rectification(self) -> dict:
-        raise NotImplementedError("stereo rectification (ops/rectify) is not ported yet: ROADMAP M9")
+        """R1/R2/P1/P2/Q, K_new and the baseline of the raw rig
+        (``ops.rectify.stereo_rectify``, host math)."""
+        from ..ops.rectify import stereo_rectify
 
-    def rectify_images(self, img_left, img_right, rect: dict | None = None):
-        raise NotImplementedError("stereo rectification (ops/rectify) is not ported yet: ROADMAP M9")
+        return stereo_rectify(self.left.K, self.left.D, self.right.K, self.right.D, self.R, self.T)
+
+    def rectify_images(self, img_left, img_right, rect: dict | None = None, device=None):
+        """Dense path: both raw images resampled into the rectified rig on
+        ``device`` (the card unless the caller asks for the CPU). Returns
+        (left', right', K_new, baseline), the images as float32 tensors:
+        the input of the rectified stereo pipeline."""
+        from ..ops.rectify import remap_bilinear, undistort_rectify_map
+        from ..utils.device import default_device
+
+        dev = default_device(device)
+        rect = rect or self.rectification()
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float32)).to(dev)
+
+        H, W = np.asarray(img_left).shape[:2]
+        m1 = undistort_rectify_map(t(self.left.K), t(self.left.D), t(rect["R1"]), t(rect["K_new"]), H, W)
+        m2 = undistort_rectify_map(t(self.right.K), t(self.right.D), t(rect["R2"]), t(rect["K_new"]), H, W)
+        return remap_bilinear(t(img_left), m1), remap_bilinear(t(img_right), m2), rect["K_new"], rect["baseline"]
 
 
 class UniversalCalibration:

@@ -3,9 +3,9 @@
 
 Each adapter reads its layout's timestamp file, stereo folder or depth
 association, and yields frames plus calibration through
-``DataSourceBase``. The port's facade runs the mono camera of each; the
-stereo and depth frames they can yield feed the stereo and RGB-D slices
-(ROADMAP M9).
+``DataSourceBase``: KITTI with ``stereo=True`` and EuRoC yield [left,
+right] pairs for the stereo facade, TUM's ``get_depth`` the depth maps
+(metres) of the RGB-D facade.
 """
 from __future__ import annotations
 

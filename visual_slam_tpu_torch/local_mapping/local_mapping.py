@@ -7,8 +7,8 @@ lock, brings a queued keyframe's pose up to the current mono gauge, runs
 the sensor's keyframe handler (neighbour matching and triangulation on
 ``device``), adds the keyframe, updates covisibility, culls landmarks
 without observations, culls redundant keyframes and enforces the landmark
-budget. Only the monocular handler is ported: ``make_handler`` raises for
-stereo and RGB-D (ROADMAP M9).
+budget. ``make_handler`` picks the sensor's handler: monocular, stereo or
+RGB-D.
 """
 from __future__ import annotations
 
@@ -24,13 +24,18 @@ from ..sensor_type import SensorType
 from ..utils.device import default_device
 from .base import BaseKeyframeHandler
 from .mono import MonoKeyframeHandler
+from .rgbd import RGBDKeyframeHandler
+from .stereo import StereoKeyframeHandler
 
 
 def make_handler(sensor_type: SensorType, camera, config, slam_map, tracker, logger=None,
                  device=None) -> BaseKeyframeHandler:
-    if sensor_type != SensorType.MONOCULAR:
-        raise NotImplementedError(f"the {sensor_type.name.lower()} keyframe handler is not ported yet: ROADMAP M9")
-    return MonoKeyframeHandler(camera, config, slam_map, tracker, logger, device=device)
+    cls = {
+        SensorType.MONOCULAR: MonoKeyframeHandler,
+        SensorType.STEREO: StereoKeyframeHandler,
+        SensorType.RGBD: RGBDKeyframeHandler,
+    }[sensor_type]
+    return cls(camera, config, slam_map, tracker, logger, device=device)
 
 
 class LocalMapping:

@@ -29,7 +29,7 @@ Keyframe features stay on the device; their host views are filled from
 the fetch that brought them.
 
 Not ported yet, each raising ``NotImplementedError`` when its switch is
-on: stereo and RGB-D sensors, async boundaries
+on: stereo and RGB-D sensors (ROADMAP M9b), async boundaries
 (``tracking.async_boundary``), ``optimization.async_ba``, ragged
 descriptors, and ``save``/``resume``.
 """
@@ -88,7 +88,8 @@ class CompiledSLAM:
         tcfg = self.config.tracking
         ocfg = self.config.optimization
         if self.config.camera.sensor_type != "monocular":
-            raise NotImplementedError(f"the {self.config.camera.sensor_type} CompiledSLAM is not ported yet")
+            raise NotImplementedError(f"the {self.config.camera.sensor_type} CompiledSLAM is not ported yet: "
+                                      "ROADMAP M9b")
         if fcfg.ragged_descriptors:
             raise NotImplementedError("ragged descriptors are not ported yet")
         if ocfg.async_ba:

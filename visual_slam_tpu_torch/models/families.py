@@ -1,7 +1,6 @@
 """Pipeline families (port of ``visual_slam_tpu.models.families``): thin
 constructors over ``SLAM``, the tracking step and ``parallel`` with the
-right defaults per mode. ``StereoVO`` and ``RGBDVO`` belong to ROADMAP M9,
-``PipelinedVO`` to M14."""
+right defaults per mode. ``PipelinedVO`` belongs to ROADMAP M14."""
 from __future__ import annotations
 
 import numpy as np
@@ -26,6 +25,28 @@ class MonoVO(SLAM):
     def __init__(self, camera: PinholeCamera, num_features: int = 2000, config: Config | None = None, **kwargs):
         cfg = config or _base_config(num_features)
         cfg.camera.sensor_type = "monocular"
+        super().__init__(camera, cfg, **kwargs)
+
+
+class StereoVO(SLAM):
+    """Stereo SLAM: metric scale from the first frame, on ``device`` (the
+    card unless the caller asks for the CPU)."""
+
+    def __init__(self, camera: PinholeCamera, num_features: int = 2000, config: Config | None = None, **kwargs):
+        if getattr(camera, "baseline", 0.0) <= 0:
+            raise ValueError("StereoVO needs a camera with a positive baseline")
+        cfg = config or _base_config(num_features)
+        cfg.camera.sensor_type = "stereo"
+        super().__init__(camera, cfg, **kwargs)
+
+
+class RGBDVO(SLAM):
+    """RGB-D SLAM: metric landmarks from depth maps, on ``device`` (the card
+    unless the caller asks for the CPU)."""
+
+    def __init__(self, camera: PinholeCamera, num_features: int = 2000, config: Config | None = None, **kwargs):
+        cfg = config or _base_config(num_features)
+        cfg.camera.sensor_type = "rgbd"
         super().__init__(camera, cfg, **kwargs)
 
 

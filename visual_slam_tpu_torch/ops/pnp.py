@@ -5,6 +5,12 @@ The JAX version ``vmap``s over hypotheses; here every function takes
 leading batch dimensions instead, so the 128 hypotheses are one batch, and
 ``ransac_pnp`` takes a leading batch of problems (the batched VO step's
 sequences) beside them. No function reads a value back to the host.
+
+The stereo and RGB-D variants (``refine_pose_gn_depth``,
+``ransac_pnp_depth``) add the normalized-disparity residual of each point
+with a measured depth to the same solves: ``refine_pose_gn`` and
+``ransac_pnp`` take the depth terms as optional arguments, so mono and
+depth share one body and the mono path computes what it did.
 """
 from __future__ import annotations
 
@@ -72,12 +78,20 @@ def refine_pose_gn(
     iters: int = 8,
     huber: torch.Tensor | float = 3e-3,
     damping: float = 1e-6,
+    z_meas: torch.Tensor | None = None,
+    w_z: torch.Tensor | None = None,
+    baseline: float = 0.0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Damped Huber-IRLS Gauss-Newton on SE(3), left update T <- exp(xi) T,
     fixed iteration count. R0 (..., 3, 3) and t0 (..., 3) may carry a
-    batch of poses; ``w`` (..., N) broadcasts against it."""
+    batch of poses; ``w`` (..., N) broadcasts against it. With ``z_meas``
+    (..., N) measured camera depths and their weights ``w_z``, each point
+    also adds the residual ``baseline * (1/z_hat - 1/z_meas)`` (see
+    ``refine_pose_gn_depth``)."""
     R, t = R0, t0
     eye6 = torch.eye(6, dtype=R0.dtype, device=R0.device)
+    if z_meas is not None:
+        inv_zm = 1.0 / torch.clamp(z_meas, min=_EPS)
     for _ in range(iters):
         pc = pts3d @ R.transpose(-1, -2) + t[..., None, :]
         x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
@@ -95,6 +109,16 @@ def refine_pose_gn(
         J = torch.stack([Ju, Jv], dim=-2)  # (..., N, 2, 6)
         JtJ = torch.einsum("...nif,...n,...nig->...fg", J, ww, J)
         Jtr = torch.einsum("...nif,...n,...ni->...f", J, ww, r)
+        if z_meas is not None:
+            # d(1/z)/d(rho) = [0, 0, -1/z^2]; d(1/z)/d(phi) = -1/z^2 [y, -x, 0]
+            # (left perturbation, dp/dxi = [I | -hat(p)]).
+            rz = baseline * (inv_z - inv_zm)
+            Jz = baseline * torch.stack([zero, zero, -inv_z * inv_z, -v * inv_z, u * inv_z, zero], dim=-1)
+            az = torch.abs(rz)
+            hz = torch.where(az <= huber, 1.0, huber / torch.clamp(az, min=_EPS))
+            wz = w * w_z * hz * (z > _EPS)
+            JtJ = JtJ + torch.einsum("...nf,...n,...ng->...fg", Jz, wz, Jz)
+            Jtr = Jtr + torch.einsum("...nf,...n,...n->...f", Jz, wz, rz)
         # SPD damped normal equations: Cholesky and two triangular solves.
         # cholesky_ex reads no error status back to the host, which
         # linalg.cholesky does on every call.
@@ -107,6 +131,41 @@ def refine_pose_gn(
     return R, t
 
 
+def refine_pose_gn_depth(
+    R0: torch.Tensor,
+    t0: torch.Tensor,
+    pts3d: torch.Tensor,
+    xy: torch.Tensor,
+    w: torch.Tensor,
+    z_meas: torch.Tensor,
+    w_z: torch.Tensor,
+    baseline: float,
+    iters: int = 8,
+    huber: torch.Tensor | float = 3e-3,
+    damping: float = 1e-6,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gauss-Newton SE(3) refinement with a stereo / RGB-D depth residual:
+    beside the reprojection residuals, each point with a measured depth
+    ``z_meas`` (weight ``w_z``, 0/1) adds ORB-SLAM2's rectified-stereo
+    residual in normalized units, ``r_z = b (1/z_hat - 1/z_meas)`` with
+    ``b = baseline`` in metres (the real baseline, or RGB-D's virtual one):
+    the normalized disparity error, commensurate with the reprojection
+    residuals, which pins translation along the optical axis and metric
+    scale every frame."""
+    return refine_pose_gn(R0, t0, pts3d, xy, w, iters=iters, huber=huber, damping=damping, z_meas=z_meas,
+                          w_z=w_z, baseline=baseline)
+
+
+def _depth_err2(R: torch.Tensor, t: torch.Tensor, pts3d: torch.Tensor, z_meas: torch.Tensor,
+                baseline: float) -> torch.Tensor:
+    """Squared normalized-disparity error of the depth measurements, (..., N);
+    points behind the camera get 1e6."""
+    z = (pts3d @ R[..., 2, :, None])[..., 0] + t[..., 2:3]
+    zs = torch.where(torch.abs(z) < _EPS, _EPS, z)
+    rz = baseline * (1.0 / zs - 1.0 / torch.clamp(z_meas, min=_EPS))
+    return torch.where(z > _EPS, rz * rz, 1e6)
+
+
 def ransac_pnp(
     pts3d: torch.Tensor,
     xy: torch.Tensor,
@@ -116,6 +175,9 @@ def ransac_pnp(
     thresh: torch.Tensor | float = 6e-3,
     refine_iters: int = 8,
     sample_idx: torch.Tensor | None = None,
+    z_meas: torch.Tensor | None = None,
+    z_valid: torch.Tensor | None = None,
+    baseline: float = 0.0,
 ) -> dict:
     """Fixed-budget RANSAC PnP in normalized image coordinates: ``n_hyp``
     6-point DLT hypotheses, two Huber-GN steps each (LO-RANSAC), truncated
@@ -126,7 +188,10 @@ def ransac_pnp(
     Returns dict(R, t, T (4, 4), inliers (N,), n_inliers, ok). With a
     leading batch on ``pts3d`` (B, N, 3), ``xy`` and ``mask`` (B problems
     solved at once), ``gen`` is a sequence of B generators, ``sample_idx``
-    (B, n_hyp, 6), and every output carries the leading B."""
+    (B, n_hyp, 6), and every output carries the leading B. With ``z_meas``
+    and ``z_valid`` (..., N), the local optimization, the cost and the
+    polish also hold the depth residual (``ransac_pnp_depth``); inliers stay
+    reprojection-based."""
     nb = mask.dim() - 1
     if sample_idx is None:
         sample_idx = _sample_minimal_sets(gen, mask, n_hyp, 6)
@@ -134,18 +199,27 @@ def ransac_pnp(
     w6 = torch.ones(idx.shape, dtype=xy.dtype, device=xy.device)
     Rs, ts = pnp_dlt(take_rows(pts3d, idx, nb), take_rows(xy, idx, nb), w6)
     mask_f = mask.to(xy.dtype)
+    depth, depth_h = {}, {}  # the depth terms, for one pose and for the hypotheses
+    if z_meas is not None:
+        zok = z_valid & mask
+        w_z = zok.to(xy.dtype)
+        depth = {"z_meas": z_meas, "w_z": w_z, "baseline": baseline}
+        depth_h = {"z_meas": z_meas.unsqueeze(-2), "w_z": w_z.unsqueeze(-2), "baseline": baseline}
     # Each problem's points against all of its hypotheses: (..., 1, N, .).
     P, x, m = pts3d.unsqueeze(-3), xy.unsqueeze(-3), mask_f.unsqueeze(-2)
-    Rs, ts = refine_pose_gn(Rs, ts, P, x, m, iters=2, huber=4.0 * thresh)
+    Rs, ts = refine_pose_gn(Rs, ts, P, x, m, iters=2, huber=4.0 * thresh, **depth_h)
     errs = _reproj_err2(Rs, ts, P, x)  # (..., H, N)
     t2 = thresh * thresh
     cost = torch.where(mask.unsqueeze(-2), torch.clamp(errs, max=t2), 0.0).sum(-1)
+    if depth:
+        errs_z = _depth_err2(Rs, ts, P, z_meas.unsqueeze(-2), baseline)
+        cost = cost + torch.where(zok.unsqueeze(-2), torch.clamp(errs_z, max=t2), 0.0).sum(-1)
     # gather, not indexing by the 0-d argmin: that reads it on the host.
     best = torch.argmin(cost, dim=-1)[..., None, None, None]
     R0 = Rs.gather(-3, best.expand(*best.shape[:-2], 3, 3))[..., 0, :, :]
     t0 = ts.gather(-2, best[..., 0].expand(*best.shape[:-3], 1, 3))[..., 0, :]
     inl0 = (_reproj_err2(R0, t0, pts3d, xy) < t2) & mask
-    R, t = refine_pose_gn(R0, t0, pts3d, xy, inl0.to(xy.dtype), iters=refine_iters, huber=thresh)
+    R, t = refine_pose_gn(R0, t0, pts3d, xy, inl0.to(xy.dtype), iters=refine_iters, huber=thresh, **depth)
     inliers = (_reproj_err2(R, t, pts3d, xy) < t2) & mask
     better = (inliers.sum(-1) >= inl0.sum(-1))[..., None]
     R = torch.where(better[..., None], R, R0)
@@ -153,3 +227,26 @@ def ransac_pnp(
     inliers = torch.where(better, inliers, inl0)
     n_inl = inliers.sum(-1)
     return {"R": R, "t": t, "T": make_T(R, t), "inliers": inliers, "n_inliers": n_inl, "ok": n_inl >= 6}
+
+
+def ransac_pnp_depth(
+    pts3d: torch.Tensor,
+    xy: torch.Tensor,
+    mask: torch.Tensor,
+    z_meas: torch.Tensor,
+    z_valid: torch.Tensor,
+    baseline: float,
+    gen=None,
+    n_hyp: int = 256,
+    thresh: torch.Tensor | float = 6e-3,
+    refine_iters: int = 8,
+    sample_idx: torch.Tensor | None = None,
+) -> dict:
+    """Fixed-budget RANSAC PnP with per-point depth measurements (stereo
+    disparity, RGB-D depth): the hypotheses of ``ransac_pnp``, with the
+    normalized-disparity residual in the local optimization, the scoring
+    and the polish, so the winning pose agrees with the second modality as
+    well as the reprojections. Arguments and outputs as ``ransac_pnp``,
+    leading batch included."""
+    return ransac_pnp(pts3d, xy, mask, gen, n_hyp=n_hyp, thresh=thresh, refine_iters=refine_iters,
+                      sample_idx=sample_idx, z_meas=z_meas, z_valid=z_valid, baseline=baseline)

@@ -19,7 +19,11 @@ chunk on the device (inheriting and triangulating the new reference
 block), and ``make_compact_chunk`` gathers what the host needs at the
 chunk boundary into one small structure.
 
-Stereo and RGB-D steps are not ported yet.
+``make_frame_step`` builds the host facade's one-call frame step, for
+monocular, stereo (a (2, H, W) pair detected as one batch) and RGB-D
+frames. The stereo ``TrackStep`` of ``CompiledSLAM`` is not ported yet:
+``make_track_step(stereo=True)`` and ``make_track_chunk_promote(stereo=True)``
+raise (ROADMAP M9b).
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from .ops.lie import make_T, rotation_angle, se3_inverse
 from .ops.matching import match_descriptors
 from .ops.pnp import _reproj_err2, ransac_pnp, refine_pose_gn
 from .ops.projection import normalize_points
+from .ops.stereo import measure_keypoint_depths
 from .ops.triangulation import triangulate_gated
 from .utils.device import default_device
 from .utils.tree import to_device, tree_map
@@ -128,17 +133,24 @@ class TrackStep(nn.Module):
             n_levels=self.n_levels, scale=self.scale, grid=self.grid,
         )
 
-    def solve_pose(self, pts3d, xy_norm, pair_valid, T_pred, gen, sample_idx=None):
+    def solve_pose(self, pts3d, xy_norm, pair_valid, T_pred, gen, sample_idx=None, depth=None):
         """RANSAC-PnP over the 3D-2D pairs, and a robust Gauss-Newton from the
         predicted pose that wins where it holds more inliers. Returns
         (T_w2c (4, 4), inliers (N,)), on the device; with a leading B on
-        every input (and B generators) each output carries it."""
+        every input (and B generators) each output carries it. ``depth``
+        (kp_z (N,), kp_z_valid (N,), baseline) adds the depth residual to
+        both solves (``ransac_pnp_depth``, ``refine_pose_gn_depth``)."""
+        d_ransac = d_gn = {}
+        if depth is not None:
+            z, z_ok, b = depth
+            d_ransac = {"z_meas": z, "z_valid": z_ok, "baseline": b}
+            d_gn = {"z_meas": z, "w_z": z_ok.to(torch.float32), "baseline": b}
         with record_function("ransac_pnp"):
             res = ransac_pnp(pts3d, xy_norm, pair_valid, gen, n_hyp=self.pnp_hypotheses, thresh=self.thresh,
-                             sample_idx=sample_idx)
+                             sample_idx=sample_idx, **d_ransac)
         with record_function("fallback_gn"):
             R_f, t_f = refine_pose_gn(T_pred[..., :3, :3], T_pred[..., :3, 3], pts3d, xy_norm,
-                                      pair_valid.to(torch.float32), iters=8, huber=self.thresh)
+                                      pair_valid.to(torch.float32), iters=8, huber=self.thresh, **d_gn)
         inl_f = (_reproj_err2(R_f, t_f, pts3d, xy_norm) < self.thresh * self.thresh) & pair_valid
         use_fallback = (inl_f.sum(-1) > res["n_inliers"])[..., None]
         T = make_T(torch.where(use_fallback[..., None], R_f, res["R"]), torch.where(use_fallback, t_f, res["t"]))
@@ -208,7 +220,7 @@ class TrackStep(nn.Module):
 def make_track_step(K, stereo: bool = False, **kwargs) -> TrackStep:
     """Build the tracking step; keyword arguments as ``TrackStep``."""
     if stereo:
-        raise NotImplementedError("the stereo tracking step is not ported yet")
+        raise NotImplementedError("the stereo tracking step is not ported yet: ROADMAP M9b")
     return TrackStep(K, **kwargs)
 
 
@@ -219,42 +231,80 @@ class FrameStep:
     predicted pose, on ``TrackStep``'s buffers and settings. Unlike the
     step it takes the landmark block, the predicted pose and the generator
     explicitly, so the host ``Tracking`` state machine drives it; keypoints
-    of a distorted camera are undistorted inside."""
+    of a distorted camera are undistorted inside.
 
-    def __init__(self, step: TrackStep, dist=None):
+    ``stereo``: the image is a (2, H, W) left/right pair, detected as one
+    batch (one K1 launch); each left keypoint's depth comes from the
+    row-gated right match. ``rgbd``: the image is a (2, H, W) stack of
+    (gray, depth map); each keypoint's depth is the map's pixel. Both go
+    through ``ops.stereo.measure_keypoint_depths``, depth window included.
+    Either solves the depth-aware PnP with ``baseline`` (the rig's, or
+    RGB-D's virtual one) and returns ``features_right`` (stereo), ``kp_z``
+    and ``kp_z_valid`` besides."""
+
+    def __init__(self, step: TrackStep, dist=None, stereo: bool = False, rgbd: bool = False, baseline: float = 0.0,
+                 stereo_row_tolerance: float = 2.0, min_depth: float = 0.1, max_depth: float = 50.0,
+                 depth_scale: float = 1.0):
+        if (stereo or rgbd) and baseline <= 0:
+            raise ValueError("stereo and RGB-D frame steps need a positive (virtual) baseline")
         self.step = step
         self.dist = None if dist is None else torch.as_tensor(np.asarray(dist, np.float32)).to(step.K.device)
+        self.stereo, self.rgbd, self.baseline = stereo, rgbd, baseline
+        self.bf = baseline * float(step.K[0, 0])
+        self.depth_settings = {"row_tolerance": stereo_row_tolerance, "depth_scale": depth_scale,
+                               "min_depth": min_depth, "max_depth": max_depth}
 
-    def __call__(self, img, lm_pos, lm_desc, lm_valid, T_pred, gen, sample_idx=None) -> dict:
+    def _detect(self, img) -> Features:
         from .ops.projection import undistort_pixels
 
         s = self.step
         feats = s.detect(img)
         if self.dist is not None:
             feats = feats._replace(xy=undistort_pixels(s.K, s.Kinv, self.dist, feats.xy))
+        return feats
+
+    def __call__(self, img, lm_pos, lm_desc, lm_valid, T_pred, gen, sample_idx=None) -> dict:
+        s = self.step
+        out, depth = {}, None
+        if self.stereo:
+            pair = self._detect(img)
+            feats, feats_r = (Features(*[a[b] for a in pair]) for b in (0, 1))
+            kp_z, kp_z_valid = measure_keypoint_depths(feats, feats_r, self.bf, **self.depth_settings)
+            out["features_right"] = feats_r
+        elif self.rgbd:
+            feats = self._detect(img[0])
+            kp_z, kp_z_valid = measure_keypoint_depths(feats, img[1], **self.depth_settings)
+        else:
+            feats = self._detect(img)
+        if self.stereo or self.rgbd:
+            depth = (kp_z, kp_z_valid, self.baseline)
+            out.update(kp_z=kp_z, kp_z_valid=kp_z_valid)
         g = guided_match(lm_pos, lm_desc, lm_valid, T_pred, s.K, feats.xy, feats.desc, feats.valid, s.width,
                          s.height, radius_px=s.guided_radius_px, ratio=s.guided_ratio)
         pair_valid = g["valid"]
         T, inliers = s.solve_pose(g["pts3d"], normalize_points(s.Kinv, feats.xy), pair_valid, T_pred, gen,
-                                  sample_idx=sample_idx)
+                                  sample_idx=sample_idx, depth=depth)
         n_inl = inliers.sum()
-        return {"features": feats, "T_w2c": T, "n_inliers": n_inl, "pair_valid": pair_valid, "lm_idx": g["lm_idx"],
-                "pnp_inliers": inliers, "ok": n_inl >= 6}
+        out.update(features=feats, T_w2c=T, n_inliers=n_inl, pair_valid=pair_valid, lm_idx=g["lm_idx"],
+                   pnp_inliers=inliers, ok=n_inl >= 6)
+        return out
 
 
 def make_frame_step(K, width: float, height: float, num_features: int = 2000, fast_threshold: float = 20.0,
                     n_levels: int = 4, scale: float = 1.2, grid: int = 8, pnp_hypotheses: int = 128,
                     pnp_threshold_px: float = 3.0, guided_radius_px: float = 25.0, guided_ratio: float = 0.8,
-                    dist=None, stereo: bool = False, rgbd: bool = False, device=None) -> FrameStep:
+                    dist=None, stereo: bool = False, rgbd: bool = False, baseline: float = 0.0,
+                    stereo_row_tolerance: float = 2.0, min_depth: float = 0.1, max_depth: float = 50.0,
+                    depth_scale: float = 1.0, device=None) -> FrameStep:
     """The fused host-facade frame step on ``device`` (the card unless the
-    caller asks for the CPU). The stereo and RGB-D variants belong to
-    ROADMAP M9."""
-    if stereo or rgbd:
-        raise NotImplementedError("the stereo and RGB-D frame steps are not ported yet: ROADMAP M9")
+    caller asks for the CPU); ``stereo`` / ``rgbd`` and their settings as
+    ``FrameStep``."""
     step = TrackStep(K, num_features=num_features, fast_threshold=fast_threshold, n_levels=n_levels, scale=scale,
                      grid=grid, pnp_hypotheses=pnp_hypotheses, pnp_threshold_px=pnp_threshold_px, width=width,
                      height=height, guided_radius_px=guided_radius_px, guided_ratio=guided_ratio, device=device)
-    return FrameStep(step, dist=dist)
+    return FrameStep(step, dist=dist, stereo=stereo, rgbd=rgbd, baseline=baseline,
+                     stereo_row_tolerance=stereo_row_tolerance, min_depth=min_depth, max_depth=max_depth,
+                     depth_scale=depth_scale)
 
 
 def _stack(items):
@@ -409,7 +459,7 @@ class TrackChunkPromote:
 def make_track_chunk_promote(track_step: TrackStep, K, stereo: bool = False, **kwargs) -> TrackChunkPromote:
     """Build the self-promoting chunk; keyword arguments as ``TrackChunkPromote``."""
     if stereo:
-        raise NotImplementedError("stereo in-chunk promotion is not ported yet")
+        raise NotImplementedError("stereo in-chunk promotion is not ported yet: ROADMAP M9b")
     return TrackChunkPromote(track_step, K, **kwargs)
 
 

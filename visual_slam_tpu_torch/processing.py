@@ -6,7 +6,10 @@ source (a ``DataSourceBase``, a dataset directory whose layout
 ``io.datasets.open_dataset`` recognizes, or a video file), the calibration
 (an explicit file, else the dataset's own, else a heuristic focal length),
 the camera and the ``SLAM`` facade on ``device`` (the card unless the
-caller asks for the CPU); ``run()`` feeds every frame and shuts down.
+caller asks for the CPU); ``run()`` feeds every frame and shuts down. A
+stereo configuration takes the source's [left, right] frames and the
+calibration's baseline; an RGB-D one also feeds the source's depth map of
+each frame (``get_depth``).
 """
 from __future__ import annotations
 

@@ -1,18 +1,19 @@
-"""The host SLAM facade: wiring and lifecycle (port of ``visual_slam_tpu.slam``,
-monocular).
+"""The host SLAM facade: wiring and lifecycle (port of ``visual_slam_tpu.slam``)
+for monocular, stereo and RGB-D cameras.
 
 ``SLAM(camera, config, device=...)`` builds the ``FeatureTracker``, ``Map``,
 ``LMOptimizer``, ``LocalMapping``, ``Tracking``, the local and global BA
 handlers and, with ``loop_closing.enabled``, ``LoopClosing``, all on
 ``device`` (the card unless the caller passes ``device="cpu"``; without a
-card ``None`` raises). ``track(images, timestamp)`` runs one frame: on a
-new keyframe the local BA handler steps and loop closing looks for a
+card ``None`` raises). ``track(images, timestamp, depth=None)`` runs one
+frame (``[left, right]`` for stereo, a depth map in ``depth`` for RGB-D):
+on a new keyframe the local BA handler steps and loop closing looks for a
 revisit (kernel K4). By default local mapping and BA run inline at
 keyframe boundaries; ``threaded=True`` runs them on background threads
 under the map lock, as in the JAX package.
 
 ``save``/``resume`` and ``optimization.solver="adam"`` belong to ROADMAP
-M13, stereo and RGB-D to M9: each raises ``NotImplementedError``.
+M13: each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -40,8 +41,6 @@ class SLAM:
         self.device = default_device(device)
         self.state = State.NO_IMAGES_YET
         self.logger = get_logger("slam", log_dir=log_dir)
-        if self.config.camera.sensor_type != "monocular":
-            raise NotImplementedError(f"the {self.config.camera.sensor_type} SLAM facade is not ported yet: ROADMAP M9")
         if self.config.feature.ragged_descriptors:
             raise NotImplementedError("ragged descriptors are not ported: they exist for the TPU's tiling")
         if self.config.optimization.solver == "adam":

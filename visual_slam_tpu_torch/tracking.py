@@ -1,5 +1,4 @@
-"""Per-frame tracking state machine (port of ``visual_slam_tpu.tracking``,
-monocular).
+"""Per-frame tracking state machine (port of ``visual_slam_tpu.tracking``).
 
 State dispatch, first-frame intake and the two-view bootstrap hand-off
 (``Initializer``), steady-state tracking through the pluggable strategy
@@ -11,12 +10,17 @@ mono gauge catch-up for the threaded mode (``Map.gauge_version``) and
 relocalization against recent keyframes plus a global-signature shortlist
 of the whole map.
 
+Stereo and RGB-D frames carry a depth per keypoint (``_measure_depth``:
+the row-gated left/right match of ``ops.stereo``, or the depth map's
+pixel), and the pose solve then adds their normalized-disparity residual
+(``ops.pnp.ransac_pnp_depth``); a stereo pair is detected as one B = 2
+batch, so kernel K1 launches once a frame. The stereo and RGB-D bootstraps
+take one frame (``Initializer``).
+
 The device work runs on ``device`` (the card unless the caller asks for
 the CPU); the host decisions read counts fetched every frame, by design.
 The RANSAC draws come from a ``torch.Generator`` on the device seeded 13
-(the JAX package's ``PRNGKey(13)``). Stereo and RGB-D tracking (the depth
-residual, ``_measure_depth``) belong to ROADMAP M9: a non-monocular
-configuration raises.
+(the JAX package's ``PRNGKey(13)``).
 """
 from __future__ import annotations
 
@@ -30,9 +34,11 @@ from .camera import Camera
 from .config import Config
 from .frontend.tracker import FeatureTracker
 from .map import Frame, KeyFrame, Map
+from .ops.detector import Features
 from .ops.lie import rotation_angle
 from .ops.pnp import _reproj_err2, ransac_pnp, refine_pose_gn
 from .ops.projection import normalize_points, undistort_pixels
+from .ops.stereo import depth_settings, measure_keypoint_depths
 from .state import State
 from .utils.device import default_device
 from .utils.tree import to_host
@@ -54,8 +60,8 @@ class Tracking:
         from .initializer import Initializer
         from .trackingalgorithm import FusedMonoTracking, MonoTracking
 
-        if config.camera.sensor_type != "monocular":
-            raise NotImplementedError(f"{config.camera.sensor_type} tracking is not ported yet: ROADMAP M9")
+        if config.camera.sensor_type not in ("monocular", "stereo", "rgbd"):
+            raise ValueError(f"unknown sensor type {config.camera.sensor_type!r}")
         self.camera = camera
         self.config = config
         self.tracker = feature_tracker
@@ -111,7 +117,11 @@ class Tracking:
     def track(self, images, timestamp: float, depth=None) -> dict:
         state = self.state
         if state == State.NO_IMAGES_YET:
-            self._process_first_frame(images, timestamp, depth)
+            if self.config.camera.sensor_type == "monocular":
+                self._process_first_frame(images, timestamp, depth)
+            else:
+                # Stereo and RGB-D measure depth: initialize on the first frame.
+                self._try_initialize(images, timestamp, depth)
             return {"state": self.state.name}
         if state in (State.NOT_INITIALIZED, State.INITIALIZING):
             self._try_initialize(images, timestamp, depth)
@@ -143,6 +153,7 @@ class Tracking:
 
     # -- steady state --------------------------------------------------------
     def _track_ok(self, images, timestamp, depth) -> dict:
+        # Stereo and RGB-D share the mono core; their frames carry depths.
         return self._track_mono(images, timestamp, depth)
 
     def _track_mono(self, images, timestamp, depth) -> dict:
@@ -174,15 +185,45 @@ class Tracking:
         return info
 
     def _create_frame(self, images, timestamp, depth) -> Frame:
-        """Detect on every camera (kernel K1) and undistort the keypoints to
-        ideal pinhole pixels once, here."""
-        images = list(images) if isinstance(images, (list, tuple)) else [images]
-        grays = [im if im.ndim == 2 else _to_gray(im) for im in images]
-        feats = [undistort_features(self.tracker.detectAndCompute(g), self.camera) for g in grays]
+        """Detect on every camera (kernel K1; a stereo pair as one batch),
+        undistort the keypoints to ideal pinhole pixels once, here, and
+        measure the keypoints' depths."""
+        images, grays = frame_images(images, depth, self.config.camera.sensor_type)
+        feats = detect_frame_features(self.tracker, self.camera, grays)
         frame = Frame(images=images, images_gray=grays, features=feats, timestamp=timestamp, depth=depth)
+        self._measure_depth(frame)
         self.map.add_frame(frame)
         self.current_frame = frame
         return frame
+
+    def _measure_depth(self, frame: Frame) -> None:
+        """Per-keypoint depth of the second modality (``frame.kp_z`` and
+        ``kp_z_valid``, host arrays slot-aligned with camera 0): the
+        row-gated left/right match of a stereo pair, or the depth map's
+        pixel under each keypoint; one fetch. It feeds the depth-aware pose
+        solve and the keyframe handlers."""
+        sensor = self.config.camera.sensor_type
+        if not self.config.tracking.use_depth_residual:
+            return
+        feats = frame.get_features(0)
+        if sensor == "stereo" and frame.get_features(1) is not None:
+            bf = float(getattr(self.camera, "bf", 0.0))
+            if bf <= 0:
+                return
+            second = frame.get_features(1)
+        elif sensor == "rgbd" and frame.depth is not None:
+            bf, second = 0.0, self._t(frame.depth)
+        else:
+            return
+        frame.kp_z, frame.kp_z_valid = to_host(
+            measure_keypoint_depths(feats, second, bf, **depth_settings(self.config)))
+
+    def _depth_baseline(self) -> float:
+        """Baseline (m) of the normalized-disparity residual: the rig's for
+        stereo, ``tracking.rgbd_virtual_baseline`` for RGB-D."""
+        if self.config.camera.sensor_type == "stereo":
+            return float(getattr(self.camera, "baseline", 0.0))
+        return float(self.config.tracking.rgbd_virtual_baseline)
 
     def _predict_pose(self, frame: Frame) -> None:
         """Constant-velocity prediction."""
@@ -333,7 +374,9 @@ class Tracking:
 
     def _optimize_pose(self, frame: Frame, pts3d, xy_obs, pair_valid, sample_idx=None) -> dict:
         """RANSAC-PnP on the device, then, under ``min_inliers``, a robust GN
-        from the predicted pose; one fetch of the result. ``sample_idx``
+        from the predicted pose; one fetch of the result. A frame with
+        per-keypoint depths (stereo, RGB-D) whose candidates are keypoint
+        slots adds the depth residual to both solves. ``sample_idx``
         (pnp_hypotheses, 6) replaces the generator's draws (the tests feed
         the JAX sampler's)."""
         tcfg = self.config.tracking
@@ -341,15 +384,20 @@ class Tracking:
         X = self._t(pts3d)
         mask = self._t(pair_valid, torch.bool)
         xy_norm = normalize_points(self._Kinv, self._t(xy_obs))
+        depth_ransac, depth_gn = {}, {}  # the depth residual's arguments, as each solve takes them
+        if frame.kp_z is not None and len(frame.kp_z) == len(xy_obs) and self._depth_baseline() > 0:
+            z, z_ok, b = self._t(frame.kp_z), self._t(frame.kp_z_valid, torch.bool), self._depth_baseline()
+            depth_ransac = {"z_meas": z, "z_valid": z_ok, "baseline": b}
+            depth_gn = {"z_meas": z, "w_z": z_ok.to(torch.float32), "baseline": b}
         res = ransac_pnp(X, xy_norm, mask, self._gen, n_hyp=tcfg.pnp_hypotheses, thresh=thresh,
-                         sample_idx=None if sample_idx is None else sample_idx.to(self.device))
+                         sample_idx=None if sample_idx is None else sample_idx.to(self.device), **depth_ransac)
         ok, n_inl, R, t, inliers = to_host((res["ok"], res["n_inliers"], res["R"], res["t"], res["inliers"]))
         ok, n_inl = bool(ok), int(n_inl)
         n_pairs = max(int(np.asarray(pair_valid).sum()), 1)
         if n_inl < tcfg.min_inliers:
             # Motion-model fallback: robust GN from the predicted pose.
             R1, t1 = refine_pose_gn(self._t(frame.R_w2c), self._t(frame.t_w2c), X, xy_norm, mask.to(torch.float32),
-                                    iters=10, huber=thresh)
+                                    iters=10, huber=thresh, **depth_gn)
             inl2 = (_reproj_err2(R1, t1, X, xy_norm) < thresh * thresh) & mask
             R1, t1, inl2 = to_host((R1, t1, inl2))
             if int(inl2.sum()) > n_inl:
@@ -548,6 +596,30 @@ class Tracking:
 
 def _to_gray(img: np.ndarray) -> np.ndarray:
     return (0.299 * img[..., 0] + 0.587 * img[..., 1] + 0.114 * img[..., 2]).astype(np.float32)
+
+
+def frame_images(images, depth, sensor: str):
+    """(images, grayscale images) of one frame as lists; a stereo frame needs
+    [left, right] and an RGB-D frame a depth map, or this raises."""
+    images = list(images) if isinstance(images, (list, tuple)) else [images]
+    if sensor == "stereo" and len(images) < 2:
+        raise ValueError("a stereo frame needs [left, right] images")
+    if sensor == "rgbd" and depth is None:
+        raise ValueError("an RGB-D frame needs a depth image")
+    return images, [im if im.ndim == 2 else _to_gray(im) for im in images]
+
+
+def detect_frame_features(tracker, camera, grays) -> list[Features]:
+    """Every camera's feature block, undistorted to ideal pinhole pixels.
+    Cameras of one size (a stereo pair) go through the detector as one
+    (B, H, W) batch: kernel K1, and every other op of the detector, launch
+    once for the frame."""
+    if len(grays) > 1 and all(np.shape(g) == np.shape(grays[0]) for g in grays):
+        batch = tracker.detectAndCompute(np.stack([np.asarray(g, np.float32) for g in grays]))
+        feats = [Features(*[a[b] for a in batch]) for b in range(len(grays))]
+    else:
+        feats = [tracker.detectAndCompute(g) for g in grays]
+    return [undistort_features(f, camera) for f in feats]
 
 
 def undistort_features(feats, camera):

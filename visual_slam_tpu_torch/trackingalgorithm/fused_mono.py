@@ -7,14 +7,16 @@ brute descriptor path stays as a host-side retry for frames where the
 motion prediction poisons the guided associations. Its RANSAC draws come
 from a ``torch.Generator`` on the device seeded 31 (the JAX package's
 ``PRNGKey(31)``). Keypoints of a distorted camera are undistorted inside
-the step.
+the step. A stereo frame goes in as its (2, H, W) pair (one detect batch),
+an RGB-D frame as (gray, depth); the step measures the keypoints' depths
+and solves the depth-aware PnP, and the frame keeps them (``kp_z``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..tracking import _to_gray
+from ..tracking import frame_images
 from ..utils.tree import to_host
 from .base import BaseTrackingAlgorithm
 from .mono_tracking import MonoTracking
@@ -26,6 +28,8 @@ class FusedMonoTracking(BaseTrackingAlgorithm):
         self.landmark_cap = landmark_cap  # None -> scales with the feature budget
         self._step = None
         self._gen = None
+        self._stereo = False
+        self._rgbd = False
         self._fallback = MonoTracking(n_local_keyframes, use_guided=False)
 
     def _get_step(self, tracking):
@@ -35,11 +39,19 @@ class FusedMonoTracking(BaseTrackingAlgorithm):
             cam = tracking.camera
             fcfg = tracking.config.feature
             tcfg = tracking.config.tracking
+            lcfg = tracking.config.local_mapping
+            sensor = tracking.config.camera.sensor_type
+            self._stereo = (sensor == "stereo" and tcfg.use_depth_residual
+                            and float(getattr(cam, "baseline", 0.0)) > 0)
+            self._rgbd = sensor == "rgbd" and tcfg.use_depth_residual
             self._step = make_frame_step(
                 cam.K, float(cam.width), float(cam.height), num_features=fcfg.num_features,
                 fast_threshold=fcfg.fast_threshold, n_levels=fcfg.num_pyramid_levels, scale=fcfg.scale_factor,
                 grid=fcfg.grid_cells, pnp_hypotheses=tcfg.pnp_hypotheses, pnp_threshold_px=tcfg.pnp_threshold_px,
-                dist=cam.D if cam.has_distortion else None, device=tracking.device,
+                dist=cam.D if cam.has_distortion else None, stereo=self._stereo, rgbd=self._rgbd,
+                baseline=float(getattr(cam, "baseline", 0.0)) if self._stereo else tcfg.rgbd_virtual_baseline,
+                stereo_row_tolerance=tcfg.stereo_row_tolerance, min_depth=lcfg.min_depth,
+                max_depth=lcfg.max_depth, depth_scale=tcfg.depth_scale, device=tracking.device,
             )
             self._gen = torch.Generator(device=tracking.device).manual_seed(31)
         return self._step
@@ -52,25 +64,35 @@ class FusedMonoTracking(BaseTrackingAlgorithm):
 
         step = self._get_step(tracking)
         dev = tracking.device
-        imgs = list(images) if isinstance(images, (list, tuple)) else [images]
-        grays = [im if im.ndim == 2 else _to_gray(im) for im in imgs]
+        imgs, grays = frame_images(images, depth, tracking.config.camera.sensor_type)
         pos, desc, lvalid, landmarks = tracking._local_landmark_block(self.n_local_keyframes, cap=self.landmark_cap)
         T_pred = (tracking.motion_model @ tracking.last_frame.T_w2c if tracking.last_frame is not None
                   else np.eye(4))
+        if self._stereo:
+            img = np.stack([np.asarray(g, np.float32) for g in grays[:2]])
+        elif self._rgbd:
+            img = np.stack([np.asarray(grays[0], np.float32), np.asarray(depth, np.float32)])
+        else:
+            img = np.asarray(grays[0], np.float32)
         out = step(
-            torch.as_tensor(np.asarray(grays[0], np.float32)).to(dev), tracking._t(pos),
-            torch.from_numpy(desc).to(dev), tracking._t(lvalid, torch.bool), tracking._t(T_pred), self._gen,
+            torch.as_tensor(img).to(dev), tracking._t(pos), torch.from_numpy(desc).to(dev),
+            tracking._t(lvalid, torch.bool), tracking._t(T_pred), self._gen,
         )
-        feats = out["features"]
-        frame = Frame(images=imgs, images_gray=grays, features=[feats], timestamp=timestamp, depth=depth)
+        feats = [out["features"]] + ([out["features_right"]] if "features_right" in out else [])
+        frame = Frame(images=imgs, images_gray=grays, features=feats, timestamp=timestamp, depth=depth)
+
+        # One fetch for the decision, the depths and the frame's host feature views.
+        depths = (out["kp_z"], out["kp_z_valid"]) if "kp_z" in out else None
+        T, n_inl, ok, pair_valid, lm_idx, pnp_inl, depths, host_feats = to_host(
+            (out["T_w2c"], out["n_inliers"], out["ok"], out["pair_valid"], out["lm_idx"], out["pnp_inliers"],
+             depths, feats))
+        for cam_id, hf in enumerate(host_feats):
+            frame.cache_host_features(hf, cam_id)
+        if depths is not None:
+            # The step's depths: reused by the PnP retries and the keyframe handlers.
+            frame.kp_z, frame.kp_z_valid = depths
         tracking.map.add_frame(frame)
         tracking.current_frame = frame
-
-        # One fetch for the decision and the frame's host feature views.
-        T, n_inl, ok, pair_valid, lm_idx, pnp_inl, host_feats = to_host(
-            (out["T_w2c"], out["n_inliers"], out["ok"], out["pair_valid"], out["lm_idx"], out["pnp_inliers"],
-             feats))
-        frame.cache_host_features(host_feats)
         n_candidates = int(pair_valid.sum())
         n_inl = int(n_inl)
         info = {
