@@ -114,20 +114,44 @@
       (the stereo pairs with a KITTI P0/P1 calibration, the RGB-D frames
       with their depth maps through ``get_depth``); fails unless each ends
       OK, bootstraps on frame 0 and poses every frame.
-10. Prints a JSON line of the kernels, then ``{"ok": true, "device": ...}``
+10. Loop pipeline (tests/loop_pipeline_world.py): bench_loop_pipeline's
+   deployment through ``CompiledSLAM`` on the card, one JSON line per run:
+   the 200-frame ring at 376x1240 around 2400 sprites with noise and
+   brightness drift, 2000 features, self-promoting chunks of 8, a heavy
+   boundary every second promotion; the frames rendered once and shared.
+   a. on: loop closing on, bootstrap then two heavy cycles before the
+      clock (host syncs per chunk counted there), a checkpoint after frame
+      LP_CHECKPOINT (``flush()``, ``save``; off the clock);
+   b. off: loop closing off, the same policy;
+   c. resume: the id counters reset to 0 as in a new process,
+      ``CompiledSLAM.resume(..., device="cuda")`` of the checkpoint, the
+      frames after it tracked;
+   d. small ring, where the JAX package's on pass closes no loop:
+      test_compiled_slam_devpromo_loop_closing's 100-frame 320x240 world.
+   Each prints FPS, the whole-trajectory ATE (% of path), keyframes,
+   landmarks, LOST frames, each detect (ms, shortlist, top-2 matches, PnP
+   inliers, candidate), each closure (keyframes, frame, inliers, ms of
+   close, of its pose-graph solve and of its global BA), K1-K5 launches and
+   peak memory; the checkpoint's bytes, save and resume ms. The gates are
+   LP_JAX's comment's. K4 is then held exactly against its plain version on
+   the arguments of the on pass's detect with the most real candidate
+   blocks (its shortlist) and timed.
+11. Prints a JSON line of the kernels, then ``{"ok": true, "device": ...}``
    as the last line. Any failure raises and exits nonzero.
 
 K5 has no caller in either package: only phase 3 launches it. The
-kernels' launch counts add up the tracking, loop, full-pipeline, facade and
-stereo facade phases; the batched rows' count the batched VO phase's
-batched steps, the B = 2 row's the stereo phases' pairs, and the RGB-D
-rows' the RGB-D phases' launches (each at least one).
+kernels' launch counts add up the tracking, loop, full-pipeline, facade,
+stereo facade and loop pipeline phases; the batched rows' count the batched
+VO phase's batched steps, the B = 2 row's the stereo phases' pairs, the
+RGB-D rows' the RGB-D phases' launches (each at least one), and the loop
+pipeline's K4 row the K4 launches of its runs.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import gc
+import itertools
 import json
 import statistics
 import subprocess
@@ -236,6 +260,29 @@ MS_FEATURES = (2000, 4000)
 MS_PROFILE_STEPS = 4
 MS_KERNEL_RATIO_MAX = 1.25  # CUDA kernels of a batched step over a single step's
 STEP_SPANS = ("detect", "match", "guided_match", "ransac_pnp", "fallback_gn")
+# Loop pipeline: bench_loop_pipeline's world and deployment
+# (tests/loop_pipeline_world.py), loop closing on and off, and a system
+# resumed from the on pass's checkpoint after LP_CHECKPOINT. The JAX
+# package's CPU run of it (scripts/loop_pipeline_reference.py): on, no
+# closure, scale-aligned ATE 0.283 % of the path, 40 keyframes, 3181
+# landmarks, no LOST frame, bootstrap on frame 6; off 0.332 %, 40
+# keyframes; the checkpoint after frame 103 (a chunk end) holds 21
+# keyframes and 1596 landmarks in 1637061 bytes, and JAX's own system
+# resumed from it goes LOST for 89 of the 96 frames after it (whole
+# trajectory 0.991 %). As the on pass closes nothing there, the small ring
+# (test_compiled_slam_devpromo_loop_closing's world, where the JAX test
+# asserts a closure; the JAX package closes kf 31 -> kf 2 at frame 92 on the
+# CPU) runs too. Gates, fixed before the first run on the card: on, no LOST
+# frame, OK at the end, ATE <= max(2 x JAX's, LP_ATE_PCT_FLOOR), K4
+# launched; closures >= max(1, JAX's) where JAX's on pass closes, else at
+# least one on the small ring (which ends OK); off, no LOST frame, ATE <=
+# max(2 x JAX's, LP_ATE_PCT_FLOOR), K4 never launched; resumed, no LOST
+# frame, OK at the end, the saved keyframe and landmark counts restored,
+# every feature block on the card, a closure after resuming where the
+# uninterrupted on pass closed after the checkpoint, whole-trajectory ATE
+# <= max(2 x the on pass's, LP_ATE_PCT_FLOOR).
+LP_JAX = {"on_closures": 0, "on_ate_pct": 0.2828, "off_ate_pct": 0.3323}
+LP_CHECKPOINT, LP_DT, LP_ATE_PCT_FLOOR = 103, 0.1, 2.0
 
 
 def log(msg: str) -> None:
@@ -511,16 +558,43 @@ def k3_row(torch, np, rng, M, n, name="guided_top2", size=(W, H)):
         library_note="no single PyTorch call gives the gated top-2 and the per-keypoint landmark argmin")
 
 
+def k4_row(torch, args, name="hamming_top2_batched"):
+    """K4 on ``args`` (query descriptors (n, 8), candidate blocks (C, m, 8),
+    their masks) against its plain version, exactly, padding blocks (no
+    valid column) giving best = BIG; then timed: its row of the kernels
+    JSON. The work counts the real blocks only: a padding block needs its
+    masks read and its outputs written, not its descriptors; in a real block
+    2 x 256 int8 multiply-adds for each valid pair."""
+    from visual_slam_tpu_torch.ops import match_kernels as mk
+
+    q, blocks, vq, vb = args
+    n, (C, m) = q.shape[0], blocks.shape[:2]
+    out, ref = mk.hamming_top2_batched(*args), mk.hamming_top2_batched_ref(*args)
+    torch.cuda.synchronize()
+    for field, a, b in zip(("best", "second", "argbest", "col_argmin"), out, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: {field} differs from the plain version")
+    pad = ~vb.any(1)
+    if not (bool((out[0][pad] == mk.BIG).all()) and int(out[3][pad].abs().sum()) == 0):
+        raise AssertionError(f"{name}: padding blocks must give best = BIG and col_argmin 0")
+    real = int((~pad).sum())
+    log(f"{name}: {n}x{C}x{m} ({real} real blocks): exact")
+    valid_pairs = int(vq.sum()) * int(vb.sum())
+    return kernel_row(
+        name, "visual_slam_tpu_torch/csrc/hamming_top2.cu", "visual_slam_tpu/ops/pallas_kernels.py:99",
+        lambda: mk.hamming_top2_batched(*args), lambda: mk.hamming_top2_batched_ref(*args), 0.0,
+        bound(n * 33 + real * m * 32 + C * m + C * (n * 12 + m * 4), {"int8_tc": 2 * 256 * valid_pairs}),
+        library_note="no single PyTorch call gives the top-2, the argbest and the column argmin")
+
+
 def check_kernels(torch, np, frame, K):
     """Each kernel against its plain version on the card, at main-path
     shapes, then timed (``kernel_row``); returns the rows of the kernels
     JSON (launches filled later)."""
-    from visual_slam_tpu_torch.ops import match_kernels as mk
     from visual_slam_tpu_torch.ops.patch_kernels import extract_patches32, extract_patches32_ref
 
     dev = torch.device("cuda")
     img = torch.from_numpy(frame).to(dev)
-    none_top2 = "no single PyTorch call gives the top-2, the argbest and the column argmin"
     # K1 on the four levels of a rendered frame (K_l = 643/537/447/373 at
     # 2000 features), K2 at 2000 x 2000, K3 at 4096 landmarks x 2000.
     rng = np.random.default_rng(1)
@@ -544,26 +618,7 @@ def check_kernels(torch, np, frame, K):
     blocks[C_REAL:] = blocks[0]
     args = [torch.from_numpy(q.view(np.int32)).to(dev), torch.from_numpy(blocks.view(np.int32)).to(dev),
             torch.from_numpy(vq).to(dev), torch.from_numpy(vb).to(dev)]
-    out = mk.hamming_top2_batched(*args)
-    ref = mk.hamming_top2_batched_ref(*args)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("best", "second", "argbest", "col_argmin"), out, ref):
-        if not torch.equal(a, b):
-            raise AssertionError(f"K4: {name} differs from the plain version")
-    if not (bool((out[0][C_REAL:] == mk.BIG).all()) and int(out[3][C_REAL:].abs().sum()) == 0):
-        raise AssertionError("K4: padding blocks must give best = BIG and col_argmin 0")
-    log(f"K4 {n}x{C_PAD}x{n} ({C_REAL} real blocks): exact")
-    # Work of the real candidates only: a padding block (no valid column)
-    # needs its masks read and its outputs written, not its descriptors;
-    # in a real block, 2*256 int8 multiply-adds for each valid pair.
-    real = int(vb.any(1).sum())
-    valid_pairs = int(vq.sum()) * int(vb.sum())
-    rows.append(kernel_row(
-        "hamming_top2_batched", "visual_slam_tpu_torch/csrc/hamming_top2.cu",
-        "visual_slam_tpu/ops/pallas_kernels.py:99",
-        lambda: mk.hamming_top2_batched(*args), lambda: mk.hamming_top2_batched_ref(*args), 0.0,
-        bound(n * 33 + real * n * 32 + C_PAD * n + C_PAD * (n * 12 + n * 4), {"int8_tc": 2 * 256 * valid_pairs}),
-        library_note=none_top2))
+    rows.append(k4_row(torch, args))
 
     # K5 at 2000 keypoints of the frame, borders and corners included.
     Hf, Wf = frame.shape
@@ -1909,6 +1964,264 @@ def run_processing(torch, np, dev, counters, source, K, cfg, p1_tx=None):
     return out, states
 
 
+def watch_loop_closing(torch, slam, stats):
+    """Time LoopClosing's detect and close on ``slam`` and, inside close,
+    the Sim(3) pose-graph solve and the global BA; keep each detect's
+    funnel and each closure."""
+    from visual_slam_tpu_torch.loop_closing import loop_closing as lc_mod
+
+    lc = slam.loop_closing
+    detect0, close0 = lc.detect, lc.close
+
+    def detect(kf):
+        t = time.perf_counter()
+        det = detect0(kf)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        stats["detect_ms"].append(ms)
+        if lc.funnel:
+            f = lc.funnel
+            stats["funnels"].append(dict(kf=kf.keyframe_id, frame=int(round(kf.timestamp / LP_DT)), ms=round(ms, 2),
+                                         shortlist=len(f["shortlist"]), top=sorted(f["n_matches"], reverse=True)[:2],
+                                         inliers=list(f["inliers"].values()),
+                                         candidate=None if det is None else det["candidate"].keyframe_id))
+        return det
+
+    def close(kf, det, use_sim3=True):
+        solve0, global0 = lc_mod.optimize_sim3_graph, lc.map.optimize_global
+        part = {}
+
+        def solve(*a, **k):
+            t = time.perf_counter()
+            out = solve0(*a, **k)
+            torch.cuda.synchronize()
+            part["pose_graph_ms"] = (time.perf_counter() - t) * 1e3
+            return out
+
+        def global_ba(*a, **k):
+            t = time.perf_counter()
+            out = global0(*a, **k)
+            torch.cuda.synchronize()
+            part["global_ba_ms"] = (time.perf_counter() - t) * 1e3
+            return out
+
+        lc_mod.optimize_sim3_graph, lc.map.optimize_global = solve, global_ba
+        t = time.perf_counter()
+        try:
+            res = close0(kf, det, use_sim3)
+            torch.cuda.synchronize()
+        finally:
+            lc_mod.optimize_sim3_graph = solve0
+            del lc.map.optimize_global
+        stats["closures"].append(dict(kf=kf.keyframe_id, candidate=det["candidate"].keyframe_id,
+                                      frame=int(round(kf.timestamp / LP_DT)), n_matches=det["n_matches"],
+                                      n_inliers=det["n_inliers"], s_meas=det["s_meas"],
+                                      close_ms=(time.perf_counter() - t) * 1e3, cost=res["pose_graph_cost"], **part))
+        return res
+
+    lc.detect, lc.close = detect, close
+
+
+def loop_pass(torch, np, slam, frames, T_gt, counters, name, start=0, warm_end=None, save=None):
+    """Drive ``slam`` through ``frames[start:]`` (the bootstrap first when it
+    is not OK yet), timing after ``warm_end`` (host syncs per chunk counted
+    before it) with ``flush()`` inside the clock; ``save`` = (frame, path)
+    checkpoints after that frame (flushed; the save stays off the clock).
+    Returns the pass's report; raises if no kernel of K1-K3 launched."""
+    import loop_pipeline_world as lpw
+
+    from visual_slam_tpu_torch.utils.metrics import ate_rmse
+
+    stats = collections.defaultdict(list)
+    if slam.loop_closing is not None:
+        watch_loop_closing(torch, slam, stats)
+    chunks = collections.Counter()
+    run_chunk0 = slam._run_chunk
+
+    def run_chunk():
+        chunks["n"] += 1
+        return run_chunk0()
+
+    slam._run_chunk = run_chunk
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    states, report, i = [], dict(phase="loop_pipeline", run=name), start
+    n_before = slam.num_frames_tracked()
+    t0 = time.perf_counter()
+    while slam.state.name != "OK" and i < 16:
+        states.append(slam.track([frames[i]], timestamp=i * LP_DT)["state"])
+        i += 1
+    if slam.state.name != "OK":
+        raise AssertionError(f"loop pipeline {name}: bootstrap failed after {i} frames")
+    if i > start:
+        report.update(bootstrap_frame=i - 1, bootstrap_s=time.perf_counter() - t0)
+    warm_end = i if warm_end is None else warm_end(i)
+    c0 = chunks["n"]
+    with count_syncs(torch) as sync_at:
+        while i < warm_end:
+            states.append(slam.track([frames[i]], timestamp=i * LP_DT)["state"])
+            i += 1
+        torch.cuda.synchronize()
+    if chunks["n"] > c0:
+        report["syncs_per_chunk"] = sum(sync_at.values()) / (chunks["n"] - c0)
+    torch.cuda.synchronize()
+    t_clock, n_timed = time.perf_counter(), len(frames) - i
+    for k in range(i, len(frames)):
+        states.append(slam.track([frames[k]], timestamp=k * LP_DT)["state"])
+        if save is not None and k == save[0]:
+            slam.flush()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            slam.save(save[1])
+            save_ms = (time.perf_counter() - t) * 1e3
+            t_clock += save_ms / 1e3
+            report.update(checkpoint_frame=k, checkpoint_chunk_end=not slam._chunk_buf, save_ms=save_ms,
+                          checkpoint_bytes=sum(p.stat().st_size for p in Path(save[1]).iterdir()),
+                          saved_keyframes=slam.map.num_keyframes(), saved_landmarks=slam.map.num_map_points(),
+                          closures_before_checkpoint=len(stats["closures"]))
+    slam.flush()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t_clock
+    launches = [fn.launches for fn in counters]
+    ts, Tw = slam.trajectory()
+    n_poses = n_before + len(frames) - report.get("bootstrap_frame", start)
+    if not (np.isfinite(Tw).all() and len(ts) == n_poses):
+        raise AssertionError(f"loop pipeline {name}: {len(ts)} poses (expected {n_poses}), finite "
+                             f"{np.isfinite(Tw).all()}")
+    rmse, pct = lpw.ate_pct(ate_rmse, ts, Tw, T_gt)
+    report.update(fps=n_timed / dt, frames_timed=n_timed, ate_m=rmse, ate_pct_of_path=pct,
+                  lost=states.count("LOST"), state=slam.state.name, keyframes=slam.map.num_keyframes(),
+                  landmarks=slam.map.num_map_points(), chunks=chunks["n"],
+                  closures=stats["closures"], detects=len(stats["detect_ms"]),
+                  detect_ms_median=statistics.median(stats["detect_ms"]) if stats["detect_ms"] else None,
+                  launches_k1_k5=launches, peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+    for f in stats["funnels"]:
+        log(f"loop pipeline {name}: detect at kf {f['kf']} (frame {f['frame']}) {f['ms']} ms, shortlist "
+            f"{f['shortlist']}, top-2 matches {f['top']}, PnP inliers {f['inliers']}, candidate {f['candidate']}")
+    log(json.dumps(report))
+    if min(launches[:3]) < 1:
+        raise AssertionError(f"loop pipeline {name}: K1-K3 launches {launches[:3]}")
+    return report
+
+
+def run_loop_pipeline(torch, np, dev, counters):
+    """bench_loop_pipeline's deployment through the port's entry points, on
+    the card: the 200-frame KITTI-width ring with loop closing on (saving a
+    checkpoint after LP_CHECKPOINT) and off, a new system resumed from that
+    checkpoint, and, where the JAX package's on pass closes no loop, the
+    small ring where its test asserts one. Returns (launches of ``counters``
+    over the phase, K4's launches, and the arguments of the on pass's K4
+    call with the most real candidate blocks); raises if a gate fails."""
+    import shutil
+    import tempfile
+
+    import loop_pipeline_world as lpw
+
+    from visual_slam_tpu_torch.camera import PinholeCamera
+    from visual_slam_tpu_torch.config import Config
+    from visual_slam_tpu_torch.map import KeyFrame
+    from visual_slam_tpu_torch.map.frame import FrameBase
+    from visual_slam_tpu_torch.models import CompiledSLAM
+    from visual_slam_tpu_torch.ops import matching
+
+    t0 = time.perf_counter()
+    frames, K, T_gt = lpw.loop_frames()
+    log(f"loop pipeline world: {len(frames)} frames {frames.shape[1:]}, {lpw.N_SPRITES} sprites, noise "
+        f"{lpw.NOISE}, brightness drift {lpw.BRIGHT}, rendered in {time.perf_counter() - t0:.2f} s")
+    cam = PinholeCamera(width=lpw.WIDTH, height=lpw.HEIGHT, K=K)
+    total = [0] * len(counters)
+    ckpt = Path(tempfile.mkdtemp(prefix="loop_ckpt_"))
+    captured = []
+    top2_batched0 = matching.hamming_top2_batched
+
+    def capture(*args):
+        # The call with the most real candidate blocks: a full shortlist.
+        real = int(args[3].any(1).sum())
+        if not captured or real > captured[0]:
+            captured[:] = [real, [a.clone() for a in args]]
+        return top2_batched0(*args)
+
+    try:
+        # On, with the checkpoint; a K4 call's arguments kept.
+        matching.hamming_top2_batched = capture
+        try:
+            on = loop_pass(torch, np, CompiledSLAM(cam, lpw.loop_config(Config, True), device=dev), frames, T_gt,
+                           counters, "on", warm_end=lambda i: lpw.warm_end(i, len(frames)),
+                           save=(LP_CHECKPOINT, ckpt))
+        finally:
+            matching.hamming_top2_batched = top2_batched0
+        off = loop_pass(torch, np, CompiledSLAM(cam, lpw.loop_config(Config, False), device=dev), frames, T_gt,
+                        counters, "off", warm_end=lambda i: lpw.warm_end(i, len(frames)))
+        total = [a + b for a, b in zip(on["launches_k1_k5"], off["launches_k1_k5"])]
+        # Resume as a new process would: the id counters restart at 0.
+        with FrameBase._ids_lock:
+            FrameBase._ids = itertools.count(0)
+        with KeyFrame._kf_ids_lock:
+            KeyFrame._kf_ids = itertools.count(0)
+        t = time.perf_counter()
+        slam = CompiledSLAM.resume(ckpt, cam, device="cuda")
+        torch.cuda.synchronize()
+        resume_ms = (time.perf_counter() - t) * 1e3
+        restored = (slam.map.num_keyframes(), slam.map.num_map_points())
+        on_features_on_card = all(t.device.type == "cuda" for kf in slam.map.get_keyframes()
+                                  for t in kf.get_features(0))
+        res = loop_pass(torch, np, slam, frames, T_gt, counters, "resume", start=LP_CHECKPOINT + 1)
+        total = [a + b for a, b in zip(total, res["launches_k1_k5"])]
+        log(f"loop pipeline resume: checkpoint {on['checkpoint_bytes']} bytes after frame {LP_CHECKPOINT} "
+            f"(chunk end {on['checkpoint_chunk_end']}), save {on['save_ms']:.1f} ms, resume {resume_ms:.1f} ms, "
+            f"restored {restored[0]} keyframes and {restored[1]} landmarks (saved {on['saved_keyframes']} and "
+            f"{on['saved_landmarks']}), every feature block on the card {on_features_on_card}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    small = None
+    if LP_JAX["on_closures"] == 0:
+        small_frames, K_s, T_s = lpw.small_ring_frames()
+        h, w = small_frames[0].shape
+        small = loop_pass(torch, np, CompiledSLAM(PinholeCamera(width=w, height=h, K=K_s),
+                                                  lpw.small_ring_config(Config), device=dev),
+                          small_frames, T_s, counters, "small")
+        total = [a + b for a, b in zip(total, small["launches_k1_k5"])]
+
+    # Gates (section 4 of the phase's description in the module docstring).
+    fails = []
+    for r in (on, off, res):
+        if r["lost"]:
+            fails.append(f"{r['run']}: {r['lost']} LOST frames")
+    for r in (on, res):
+        if r["state"] != "OK":
+            fails.append(f"{r['run']}: state {r['state']} at the end")
+    if LP_JAX["on_closures"] > 0 and len(on["closures"]) < LP_JAX["on_closures"]:
+        fails.append(f"on: {len(on['closures'])} closures, JAX's on pass {LP_JAX['on_closures']}")
+    if small is not None and (small["state"] != "OK" or not small["closures"]):
+        fails.append(f"small ring: {len(small['closures'])} closures, state {small['state']}")
+    on_max = max(2 * LP_JAX["on_ate_pct"], LP_ATE_PCT_FLOOR)
+    off_max = max(2 * LP_JAX["off_ate_pct"], LP_ATE_PCT_FLOOR)
+    res_max = max(2 * on["ate_pct_of_path"], LP_ATE_PCT_FLOOR)
+    for r, lim in ((on, on_max), (off, off_max), (res, res_max)):
+        if not r["ate_pct_of_path"] <= lim:
+            fails.append(f"{r['run']}: ATE {r['ate_pct_of_path']:.3f} % of path above {lim:.3f} %")
+    if on["launches_k1_k5"][3] < 1:
+        fails.append("on: K4 never launched")
+    if off["launches_k1_k5"][3] != 0:
+        fails.append(f"off: K4 launched {off['launches_k1_k5'][3]} times")
+    if restored != (on["saved_keyframes"], on["saved_landmarks"]):
+        fails.append(f"resume: restored {restored}, saved {(on['saved_keyframes'], on['saved_landmarks'])}")
+    if not on_features_on_card:
+        fails.append("resume: a restored feature block is not on the card")
+    if any(c["frame"] > LP_CHECKPOINT for c in on["closures"]) and not res["closures"]:
+        fails.append("resume: no closure after resuming, where the uninterrupted on pass closed after the checkpoint")
+    log(f"loop pipeline: ATE on {on['ate_pct_of_path']:.3f} % (gate {on_max:.3f}), off {off['ate_pct_of_path']:.3f} % "
+        f"(gate {off_max:.3f}), resumed {res['ate_pct_of_path']:.3f} % (gate {res_max:.3f}); FPS on {on['fps']:.2f}, "
+        f"off {off['fps']:.2f}, resumed {res['fps']:.2f}; closures on {len(on['closures'])}, resumed "
+        f"{len(res['closures'])}, small ring {None if small is None else len(small['closures'])}; launches K1-K5 "
+        f"{total}")
+    if fails:
+        raise AssertionError("loop pipeline gates: " + "; ".join(fails))
+    k4 = on["launches_k1_k5"][3] + res["launches_k1_k5"][3] + (small["launches_k1_k5"][3] if small else 0)
+    return total, k4, captured[1] if captured else None
+
+
 def run_pose_graphs(torch, np, dev):
     """bench_pose_graph's SE(3) problem and a drifted Sim(3) loop, both at
     PG_NODES: the cost must fall; ms per solve after one warm-up."""
@@ -2092,7 +2405,8 @@ def main() -> int:
                                                                patches_and_moments_batched), *counters[1:]))
     stereo, rgbd = depth["stereo"], depth["rgbd"]
     stereo_launches = [stereo["k1"], stereo["k2"], stereo["k3"], stereo["k4"], 0]
-    parts = list(zip(launches, loop_launches, fp_launches, facade_launches, stereo_launches))
+    lp_launches, lp_k4, lp_k4_args = run_loop_pipeline(torch, np, dev, counters)
+    parts = list(zip(launches, loop_launches, fp_launches, facade_launches, stereo_launches, lp_launches))
     for row, part in zip(rows, parts):
         row["launches"] = sum(part)
     for row, n in zip(rows[len(parts):], multiseq_launches):
@@ -2104,9 +2418,13 @@ def main() -> int:
             raise AssertionError(f"{row['name']}: no launch in the RGB-D phases")
     if rgbd["k1_batched"] or rgbd["k4"]:
         raise AssertionError(f"RGB-D phases launched the batched K1 {rgbd['k1_batched']} and K4 {rgbd['k4']} times")
-    log("launches per kernel (tracking, loop path, full pipeline, facade phases, stereo facade phases): "
-        f"{[(r['name'], *part) for r, part in zip(rows, parts)]}; K5 has no caller on any path; batched "
-        f"(multiseq phase; stereo phases) and RGB-D phases: {[(r['name'], r['launches']) for r in rows[len(parts):]]}")
+    log("launches per kernel (tracking, loop path, full pipeline, facade phases, stereo facade phases, loop "
+        f"pipeline phases): {[(r['name'], *part) for r, part in zip(rows, parts)]}; K5 has no caller on any path; "
+        f"batched (multiseq phase; stereo phases) and RGB-D phases: "
+        f"{[(r['name'], r['launches']) for r in rows[len(parts):]]}")
+    # K4 at the ring's own shortlist shapes: the on pass's fullest detect.
+    rows.append(k4_row(torch, lp_k4_args, "hamming_top2_batched, loop pipeline shortlist"))
+    rows[-1]["launches"] = lp_k4
 
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -371,8 +371,3 @@ def test_async_boundary_and_serialization_raise():
     cam = PinholeCamera(width=320, height=240, K=np.diag([300.0, 300.0, 1.0]))
     with pytest.raises(NotImplementedError):
         CompiledSLAM(cam, cfg, device="cpu")
-    slam = CompiledSLAM(cam, small_config(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        slam.save("unused")
-    with pytest.raises(NotImplementedError):
-        CompiledSLAM.resume("unused", cam)

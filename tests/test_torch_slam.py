@@ -185,9 +185,21 @@ def test_unported_switches_raise(section, key, value):
         SLAM(PinholeCamera(width=320, height=240, K=np.diag([300.0, 300.0, 1.0])), cfg, device="cpu")
 
 
-def test_save_and_resume_raise():
-    slam = SLAM(PinholeCamera(width=320, height=240, K=np.diag([300.0, 300.0, 1.0])), small_config(), device="cpu")
-    with pytest.raises(NotImplementedError, match="M13"):
-        slam.save("unused")
-    with pytest.raises(NotImplementedError, match="M13"):
-        SLAM.resume("unused", slam.camera)
+def test_save_and_resume_raise(tmp_path):
+    """Save and resume of the port's facade (they raised before the
+    checkpoint files were ported; the name is kept): the map after the
+    12-frame run comes back with its keyframes, landmarks, ids and motion
+    model, OK, and without a card and a device ``resume`` raises."""
+    torch.set_num_threads(2)
+    slam = _run()[0]
+    slam.save(tmp_path / "ckpt")
+    back = SLAM.resume(tmp_path / "ckpt", slam.camera, device="cpu")
+    assert back.state == State.OK
+    assert [k.keyframe_id for k in back.map.get_keyframes()] == [k.keyframe_id for k in slam.map.get_keyframes()]
+    assert back.map.num_map_points() == slam.map.num_map_points()
+    np.testing.assert_allclose(back.tracking.motion_model, slam.tracking.motion_model)
+    assert back.tracking.last_keyframe_frame_id == slam.tracking.last_keyframe_frame_id
+    assert back.tracking.reference_keyframe is back.map.get_last_keyframe()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            SLAM.resume(tmp_path / "ckpt", slam.camera)

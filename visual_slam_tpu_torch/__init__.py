@@ -8,7 +8,8 @@ with a plain PyTorch version of the same function beside its wrapper.
 
 Ported so far (README.md lists it): the fused mono tracking step, also
 over B sequences at once (``parallel.make_batched_vo``), the mono
-``CompiledSLAM`` main path, the host SLAM facade and loop closing.
+``CompiledSLAM`` main path with loop closing, the host SLAM facade (mono,
+stereo, RGB-D), and checkpoint and resume in the JAX package's file format.
 """
 
 __version__ = "0.1.0"

@@ -171,16 +171,19 @@ def map_from_numpy(keyframes, points, device=None) -> Map:
     ``timestamp``, ``T_w2c``, ``features`` (every camera's), ``map_points``
     ({(cam, kp): point}) and optionally ``kp_z``, ``kp_z_valid`` and
     ``depth``; points with ``id``, ``position``, ``is_bad``, optionally
-    ``descriptor``, and ``observations.items()`` ((kf_id, cam, kp) triples). Ids, insertion
-    order, observations and keyframe links are kept, so host bookkeeping
-    iterates in the same order in both packages."""
+    ``descriptor`` and ``color``, and ``observations.items()`` ((kf_id,
+    cam, kp) triples). Ids, insertion order, observations and keyframe
+    links are kept, so host bookkeeping iterates in the same order in both
+    packages."""
     m = Map()
     for src in keyframes:
         m.add_keyframe(keyframe_from_numpy(src.features, src.T_w2c, src.keyframe_id, frame_id=src.id,
                                            timestamp=src.timestamp, device=device, depths=src))
     def copy_point(src) -> MapPoint:
         desc = getattr(src, "descriptor", None)
-        mp = MapPoint(_np(src.position), descriptor=None if desc is None else desc_to_int32(desc))
+        color = getattr(src, "color", None)
+        mp = MapPoint(_np(src.position), color=None if color is None else _np(color),
+                      descriptor=None if desc is None else desc_to_int32(desc))
         mp.id = int(src.id)
         mp.is_bad = bool(src.is_bad)
         for kf_id, cam_id, kp_idx in src.observations.items():

@@ -30,11 +30,16 @@ the fetch that brought them.
 
 Not ported yet, each raising ``NotImplementedError`` when its switch is
 on: stereo and RGB-D sensors (ROADMAP M9b), async boundaries
-(``tracking.async_boundary``), ``optimization.async_ba``, ragged
-descriptors, and ``save``/``resume``.
+(``tracking.async_boundary``), ``optimization.async_ba`` and ragged
+descriptors.
+
+``save(path)`` checkpoints the map, the trajectory and the config in the
+JAX package's format; ``CompiledSLAM.resume(path, camera, device=...)``
+goes on from a checkpoint of either package.
 """
 from __future__ import annotations
 
+import json
 from typing import Optional
 
 import numpy as np
@@ -194,9 +199,11 @@ class CompiledSLAM:
 
     def trajectory(self) -> tuple[np.ndarray, np.ndarray]:
         """Per-frame poses (timestamps (N,), T_w2c (N, 4, 4)) in one
-        device->host copy. Each frame is anchored to its reference keyframe:
-        T_rel (at track time) @ T_ref (now), so later BA corrections of the
-        keyframe reach the frames tracked against it."""
+        device->host copy. Each frame is anchored to the keyframe it was
+        tracked against, or to the keyframe made from it: T_rel (at track
+        time) @ T_ref (now), so later BA and loop-closure corrections of the
+        keyframe reach its frames, and a keyframe's frame has its pose.
+        Blocks restored by ``resume`` keep their saved poses."""
         self._apply_pending_ba()
         if not self.poses:
             return np.zeros(0), np.zeros((0, 4, 4))
@@ -232,11 +239,63 @@ class CompiledSLAM:
         }
 
     def save(self, path) -> None:
-        raise NotImplementedError("CompiledSLAM.save (map serialization) is not ported yet")
+        """Checkpoint into directory ``path``: the map (``map.npz``), the
+        per-frame trajectory (``trajectory.npz``) and the state and config
+        (``slam.json``), in the JAX package's format."""
+        from pathlib import Path
+
+        from ..utils.serialization import save_map
+
+        path = Path(path)
+        path.mkdir(parents=True, exist_ok=True)
+        save_map(self.map, path / "map.npz")
+        ts, Ts = self.trajectory()
+        np.savez_compressed(path / "trajectory.npz", ts=ts, T_w2c=Ts)
+        meta = {"state": self.state.name, "config": self.config.to_dict()}
+        (path / "slam.json").write_text(json.dumps(meta, indent=2))
 
     @classmethod
-    def resume(cls, path, camera, log_dir: str | None = None) -> "CompiledSLAM":
-        raise NotImplementedError("CompiledSLAM.resume (map serialization) is not ported yet")
+    def resume(cls, path, camera, log_dir: str | None = None, device=None) -> "CompiledSLAM":
+        """A system restored from a checkpoint of either package on
+        ``device`` (the card unless named): the map is reloaded there, loop
+        closing points at it, the reference block and landmark arena are
+        installed from the last keyframe, and tracking goes on from the last
+        saved frame's pose and frame-to-frame motion (``flush()`` before
+        ``save`` so that no frame is left in a chunk buffer). The restored
+        trajectory blocks carry no reference keyframe: they keep their saved
+        poses."""
+        from pathlib import Path
+
+        from ..utils.serialization import load_map
+
+        path = Path(path)
+        meta = json.loads((path / "slam.json").read_text())
+        slam = cls(camera, Config.from_dict(meta["config"]), log_dir=log_dir, device=device)
+        slam.map = slam._initializer.map = load_map(path / "map.npz", device=slam.device)
+        if slam.loop_closing is not None:
+            slam.loop_closing.map = slam.map
+        kf = slam.map.get_last_keyframe()
+        ts = np.zeros(0)
+        traj = path / "trajectory.npz"
+        if traj.exists():  # the facade's checkpoints have none
+            with np.load(traj) as z:
+                ts, Ts = z["ts"], np.asarray(z["T_w2c"], np.float64)
+            slam.poses += [((float(t),), T, None, None) for t, T in zip(ts, slam._dev_pose(Ts))]  # one upload
+        if kf is not None and meta["state"] in ("OK", "MAPPING"):
+            slam.state = State.OK
+            slam._initializer.initialized = True
+            slam._install_reference(kf, T_init=kf.T_w2c)
+            if len(ts) and ts[-1] >= kf.timestamp:
+                # Go on from the last tracked frame with its frame-to-frame
+                # motion, as the saved system would have: from the keyframe's
+                # pose without motion the guided match searches the wrong
+                # place, and a first frame a few frames past the keyframe
+                # loses track.
+                T_rel = Ts[-1] @ np.linalg.inv(Ts[-2]) if len(ts) > 1 else np.eye(4)
+                slam._track_state = slam._track_state._replace(T_w2c=slam._dev_pose(Ts[-1]),
+                                                               T_rel=slam._dev_pose(T_rel))
+                slam._frames_since_kf = int((ts > kf.timestamp).sum())
+        return slam
 
     # ----------------------------------------------------------- bootstrap
     def _bootstrap(self, imgs, timestamp, depth) -> dict:
@@ -273,6 +332,21 @@ class CompiledSLAM:
             self._track_state = orig_state
             self._ref_kf = orig_ref
         return {"state": self.state.name, "relocalized": False}
+
+    def _anchor_frame(self, timestamp: float, kf: KeyFrame, T_snap: np.ndarray) -> None:
+        """Anchor the recorded pose of the frame at ``timestamp`` to ``kf``,
+        which was made from it: ``T_snap`` is the pose recorded for the frame,
+        so ``trajectory()`` gives the keyframe's pose there, now and after
+        later corrections."""
+        for b in range(len(self.poses) - 1, -1, -1):
+            ts, T, ref, snap = self.poses[b]
+            if timestamp in ts:
+                j = ts.index(timestamp)
+                T = T if T.ndim == 3 else T[None]
+                parts = [(ts[:j], T[:j], ref, snap), ((timestamp,), T[j], kf, np.asarray(T_snap, np.float64)),
+                         (ts[j + 1:], T[j + 1:], ref, snap)]
+                self.poses[b:b + 1] = [p for p in parts if p[0]]
+                return
 
     def _dev_pose(self, T) -> torch.Tensor:
         return to_device(np.asarray(T, np.float32), self.device)
@@ -480,6 +554,14 @@ class CompiledSLAM:
             new_kfs.append(kf)
             cur_ref = kf
         if new_kfs:
+            # From each promotion on, frames follow the keyframe they were
+            # tracked against: a promoted frame is its keyframe's pose, and
+            # the frames after it take that keyframe's later corrections.
+            cuts = [0, *[int(f) for f in promo_idx], n]
+            anchors = [(ref_kf, T_ref_snap)] + [(kf, kf.T_w2c.copy()) for kf in new_kfs]
+            T_blk = self.poses.pop()[1]
+            self.poses += [(ts_tuple[a:b], T_blk[a:b], kf, snap)
+                           for a, b, (kf, snap) in zip(cuts[:-1], cuts[1:], anchors) if b > a]
             kf_last = new_kfs[-1]
             self._frames_since_kf = last - int(promo_idx[-1])
             self._enforce_budget()
@@ -731,13 +813,14 @@ class CompiledSLAM:
         pts_d, valid_d = to_device((pts3d, pair_valid), self.device)
         res = ransac_pnp(pts_d, normalize_points(self._Kinv, feats.xy), valid_d, gen, n_hyp=tcfg.pnp_hypotheses,
                          thresh=tcfg.pnp_threshold_px / self.camera.fx)
-        ok, n_inl, T, inl = to_host((res["ok"], res["n_inliers"], res["T"], res["inliers"]))
+        ok, n_inl, T, inl, T_tracked = to_host((res["ok"], res["n_inliers"], res["T"], res["inliers"], out.T_w2c))
         n_inl = int(n_inl)
         if not bool(ok) or n_inl < tcfg.min_inliers:
             return None
         # Promote with the recovered associations; the pending frame was
         # tracked against the bad pose, so its decision is dropped.
         kf = self._new_keyframe(feats, host_feats, timestamp, T)
+        self._anchor_frame(timestamp, kf, T_tracked)
         for i, mp in lm_of_slot.items():
             if inl[i] and not mp.is_bad:
                 kf.add_map_point(0, i, mp)
@@ -765,7 +848,7 @@ class CompiledSLAM:
         loop closing."""
         if host is None:
             host = to_host(out)
-        T = np.asarray(host.T_w2c, np.float64)
+        T_tracked = T = np.asarray(host.T_w2c, np.float64)
         ti, m_ok, inl = np.asarray(host.match_train_idx), np.asarray(host.match_valid), np.asarray(host.pnp_inliers)
         g_idx, g_ok = np.asarray(host.guided_idx), np.asarray(host.guided_valid)
         # Land an in-flight BA writeback first and carry the tracked pose
@@ -775,6 +858,7 @@ class CompiledSLAM:
         if not np.array_equal(ref.T_w2c, T_ref_before):
             T = T @ np.linalg.inv(T_ref_before) @ ref.T_w2c
         kf = self._new_keyframe(out.features, host.features, timestamp, T)
+        self._anchor_frame(timestamp, kf, T_tracked)
         inherited, ref_mask = self._inherit(kf, ref, arena, ti, m_ok, inl, g_idx, g_ok & inl)
         # New landmarks come from matched but landmark-less pairs.
         tri_mask = m_ok & ~ref_mask[ti] & ~inherited if heavy else None

@@ -12,10 +12,14 @@ revisit (kernel K4). By default local mapping and BA run inline at
 keyframe boundaries; ``threaded=True`` runs them on background threads
 under the map lock, as in the JAX package.
 
-``save``/``resume`` and ``optimization.solver="adam"`` belong to ROADMAP
-M13: each raises ``NotImplementedError``.
+``save(path)`` checkpoints the map and the tracking context in the JAX
+package's format; ``SLAM.resume(path, camera, device=...)`` goes on from a
+checkpoint of either package. ``optimization.solver="adam"`` belongs to
+ROADMAP M13 and raises ``NotImplementedError``.
 """
 from __future__ import annotations
+
+import json
 
 import numpy as np
 
@@ -117,11 +121,51 @@ class SLAM:
 
     # -- checkpoint / resume ---------------------------------------------------
     def save(self, path) -> None:
-        raise NotImplementedError("checkpointing (utils/serialization.py) is not ported yet: ROADMAP M13")
+        """Checkpoint into directory ``path``: the map (``map.npz``) and the
+        tracking context and config (``slam.json``), in the JAX package's
+        format."""
+        from pathlib import Path
+
+        from .utils.serialization import save_map
+
+        path = Path(path)
+        path.mkdir(parents=True, exist_ok=True)
+        save_map(self.map, path / "map.npz")
+        meta = {
+            "state": self.state.name,
+            "motion_model": np.asarray(self.tracking.motion_model).tolist(),
+            "last_keyframe_frame_id": self.tracking.last_keyframe_frame_id,
+            "config": self.config.to_dict(),
+        }
+        (path / "slam.json").write_text(json.dumps(meta, indent=2))
 
     @classmethod
     def resume(cls, path, camera, log_dir: str | None = None, device=None) -> "SLAM":
-        raise NotImplementedError("checkpointing (utils/serialization.py) is not ported yet: ROADMAP M13")
+        """A system restored from a checkpoint of either package on
+        ``device`` (the card unless named): tracking, local mapping, both
+        handlers and loop closing work on the restored map, and tracking goes
+        on from its last keyframe with the saved motion model."""
+        from pathlib import Path
+
+        from .utils.serialization import load_map
+
+        path = Path(path)
+        meta = json.loads((path / "slam.json").read_text())
+        slam = cls(camera, Config.from_dict(meta["config"]), log_dir=log_dir, device=device)
+        slam.map = load_map(path / "map.npz", device=slam.device)
+        for owner in (slam.tracking, slam.tracking.initializer, slam.local_mapping, slam.local_mapping.handler,
+                      slam.local_handler, slam.global_handler, slam.loop_closing):
+            if owner is not None:
+                owner.map = slam.map
+        kf = slam.map.get_last_keyframe()
+        if kf is not None and meta["state"] in ("OK", "MAPPING"):
+            slam.state = State.OK
+            tr = slam.tracking
+            tr.reference_keyframe = tr.last_frame = tr.current_frame = kf
+            tr.last_keyframe_frame_id = meta["last_keyframe_frame_id"]
+            tr.motion_model = np.asarray(meta["motion_model"], np.float64)
+            tr.initializer.initialized = True
+        return slam
 
     # -- introspection ---------------------------------------------------------
     def metrics(self) -> dict:
