@@ -57,7 +57,19 @@
    cost not finite or above its cost0, no heavy boundary in the timed
    window, launch counts that disagree with the detects and matches the run
    made, ATE above FP_ATE_PCT_MAX % of the path, or the first heavy BA
-   solved again on the CPU disagreeing with the card's.
+   solved again on the CPU disagreeing with the card's. Then the same
+   deployment twice with async heavy boundaries (``tracking.async_boundary``
+   at its default gates: 12 keyframes, cooloff 2), gated as above with
+   FP_ASYNC_ATE_PCT_MAX: it prints the async and sync boundaries, cooloffs,
+   landed corrections, the host ms of an async solve's start and landing
+   and one solve's device ms (side stream), or that no async boundary ran;
+   the second run counts the host syncs over the whole run and fails on a
+   sync of the solve's or the boundary's code between an async solve's
+   start and the next chunk's fetch, or a solve off the side stream.
+   Then dense against sparse landmark-major BA at scripts/bench_ba_sparse.py's
+   shapes (BA_SHAPES; its problem from tests/ba_world.py): median wall of
+   BA_REPS synchronised solves, device ms, host syncs a solve (must be 0),
+   both costs (within BA_COST_RTOL).
 8. Host SLAM facade (``SLAM``, tests/facade_world.py's worlds), one JSON
    line per phase:
    a. deployment: ``bench.synth_kitti_frames(64, seed=3, step=0.6,
@@ -127,7 +139,15 @@
       ``CompiledSLAM.resume(..., device="cuda")`` of the checkpoint, the
       frames after it tracked;
    d. small ring, where the JAX package's on pass closes no loop:
-      test_compiled_slam_devpromo_loop_closing's 100-frame 320x240 world.
+      test_compiled_slam_devpromo_loop_closing's 100-frame 320x240 world;
+   e. async: loop closing on, async heavy boundaries at their default
+      gates; gates: no LOST frame, OK, ATE <= max(2 x JAX's CPU figure,
+      LP_ATE_PCT_FLOOR), K4 launched, an async boundary ran, every async
+      solve on the side stream;
+   f. sparse: loop closing on, ``sparse_obs="auto"``, then one more global
+      BA over the final map, timed; gates as e., and every solve from the
+      ``sparse_auto_min_window`` bucket on (closures' global BA and the
+      final one included) in the sparse layout, read from the optimizer.
    Each prints FPS, the whole-trajectory ATE (% of path), keyframes,
    landmarks, LOST frames, each detect (ms, shortlist, top-2 matches, PnP
    inliers, candidate), each closure (keyframes, frame, inliers, ms of
@@ -189,6 +209,13 @@ FP_FRAMES, FP_SPRITES, FP_STEP, FP_SEED, FP_CHUNK, FP_HEAVY = 64, 1500, 0.6, 3, 
 # bench_full_pipeline, and 2.0 %).
 FP_ATE_PCT_MAX = 2.0
 BA_COST_RTOL, BA_POSE_ATOL = 1e-3, 1e-3  # the heavy BA on the card against the CPU
+# The same with tracking.async_boundary on at its default gates: max(2 x the
+# JAX package's CPU run of it, 2.0 %); scripts/heavy_modes_reference.py
+# --impl jax: 0.306 % of the path, 3 async and 5 sync boundaries, 2 landed
+# corrections (largest |s - 1| 0.0032), 17 keyframes, no LOST frame.
+FP_ASYNC_ATE_PCT_MAX = max(2 * 0.3058, 2.0)
+# Dense against sparse BA: scripts/bench_ba_sparse.py's shapes (W, M, K).
+BA_SHAPES, BA_REPS = ((16, 1024, 16), (32, 4096, 16), (64, 4096, 16)), 5
 # Host facade (SLAM), tests/facade_world.py's worlds. The JAX package's CPU
 # runs of them (scripts/facade_reference.py --seeds): deploy, over its
 # tracker's default RANSAC key 13 and seeds 0-7, 21-37 keyframes (median
@@ -281,7 +308,8 @@ STEP_SPANS = ("detect", "match", "guided_match", "ransac_pnp", "fallback_gn")
 # every feature block on the card, a closure after resuming where the
 # uninterrupted on pass closed after the checkpoint, whole-trajectory ATE
 # <= max(2 x the on pass's, LP_ATE_PCT_FLOOR).
-LP_JAX = {"on_closures": 0, "on_ate_pct": 0.2828, "off_ate_pct": 0.3323}
+LP_JAX = {"on_closures": 0, "on_ate_pct": 0.2828, "off_ate_pct": 0.3323, "async_ate_pct": 0.1946,
+          "sparse_ate_pct": 0.3264}
 LP_CHECKPOINT, LP_DT, LP_ATE_PCT_FLOOR = 103, 0.1, 2.0
 
 
@@ -380,15 +408,18 @@ def kernel_row(name, source, replaces, fn, plain, err, work, library=None, libra
 
 
 @contextlib.contextmanager
-def count_syncs(torch):
+def count_syncs(torch, tag=None):
     """Count the host synchronisations inside the block by the port's
-    source line that caused them (``torch.cuda.set_sync_debug_mode``)."""
+    source line that caused them (``torch.cuda.set_sync_debug_mode``);
+    with ``tag``, each key is prefixed by ``tag(stack)``, the port's frames
+    of the sync's call stack."""
     sync_at = collections.Counter()
 
     def note_sync(message, *args, **kwargs):
         frames_ = [f for f in traceback.extract_stack() if "visual_slam_tpu_torch" in f.filename]
         if frames_ and "synchroniz" in str(message).lower():
-            sync_at[f"{frames_[-1].filename.split('visual_slam_tpu_torch/')[-1]}:{frames_[-1].lineno}"] += 1
+            where = f"{frames_[-1].filename.split('visual_slam_tpu_torch/')[-1]}:{frames_[-1].lineno}"
+            sync_at[where if tag is None else f"{tag(frames_)} {where}"] += 1
 
     shown = warnings.showwarning
     with warnings.catch_warnings():
@@ -1224,13 +1255,126 @@ def fp_config(Config):
     return cfg
 
 
-def run_full_pipeline(torch, np, dev, counters):
+def heavy_counters(slam) -> dict:
+    """Count what ``slam``'s heavy boundaries do (either package's
+    ``CompiledSLAM``; the port's own steps where it has them): async and
+    sync self-promoting chunks, cooloffs started, landed solves with a
+    device correction and the largest |s - 1|, solves by layout and the
+    layouts of the solves inside loop closing's ``close`` (its global BA);
+    on the port also the host ms of each async solve's start and landing,
+    whether it ran on the side stream, and ``window``: True from an async
+    solve's start to the next chunk's fetch. Returns the live dict."""
+    c = dict(async_chunks=0, sync_chunks=0, cooloffs=0, corrections=0, max_scale_dev=0.0, solves_dense=0,
+             solves_sparse=0, dense_buckets=set(), closing_ba_sparse=[], async_start_ms=[], async_finish_ms=[],
+             side_stream=[], window=False, last_async=None)
+    run_async0, run_sync0 = slam._run_chunk_devpromo_async, slam._run_chunk_devpromo
+    finish0, start0 = slam._finish_async_solve, slam.optimizer.solve_start
+    in_close = [False]
+
+    def run_async(*a):
+        c["async_chunks"] += 1
+        before = slam._async_cooloff
+        out = run_async0(*a)
+        c["cooloffs"] += slam._async_cooloff > before
+        return out
+
+    def run_sync(*a):
+        c["sync_chunks"] += 1
+        return run_sync0(*a)
+
+    def finish(correct_device):
+        landing, t = slam._async_bnd is not None, time.perf_counter()
+        U = finish0(correct_device)
+        if landing:
+            c["async_finish_ms"].append((time.perf_counter() - t) * 1e3)
+        if U is not None:
+            c["corrections"] += 1
+            c["max_scale_dev"] = max(c["max_scale_dev"], abs(float(U[2]) - 1.0))
+        return U
+
+    def solve_start(*a, **k):
+        pending = start0(*a, **k)
+        sparse = pending.get("obs_pose") is not None
+        c["solves_sparse" if sparse else "solves_dense"] += 1
+        if not sparse:
+            c["dense_buckets"].add(int(pending["T"].shape[0]))
+        if in_close[0]:
+            c["closing_ba_sparse"].append(sparse)
+        return pending
+
+    slam._run_chunk_devpromo_async, slam._run_chunk_devpromo = run_async, run_sync
+    slam._finish_async_solve, slam.optimizer.solve_start = finish, solve_start
+    if hasattr(slam, "_start_ba"):  # the port
+        start_ba0, fetch0 = slam._start_ba, slam._fetch_chunk
+
+        def start_ba(overlap=False):
+            t = time.perf_counter()
+            pending = start_ba0(overlap=overlap)
+            if overlap and pending is not None:
+                c["async_start_ms"].append((time.perf_counter() - t) * 1e3)
+                c["side_stream"].append(pending.get("ready") is not None)
+                c["window"], c["last_async"] = True, pending
+            return pending
+
+        def fetch(*a):
+            c["window"] = False
+            return fetch0(*a)
+
+        slam._start_ba, slam._fetch_chunk = start_ba, fetch
+    lc = slam.loop_closing
+    if lc is not None:
+        close0 = lc.close
+
+        def close(*a, **k):
+            in_close[0] = True
+            try:
+                return close0(*a, **k)
+            finally:
+                in_close[0] = False
+
+        lc.close = close
+    return c
+
+
+def solve_device_ms(torch, pending, ocfg, dev, n: int = 3):
+    """Device ms of one solve of ``pending``'s packed problem on the card
+    (``device_ms``: CUDA events around ``n`` back-to-back solves), in its
+    layout and with the configuration's iterations; None without one."""
+    if pending is None:
+        return None
+    from visual_slam_tpu_torch.backend.ba import bundle_adjust_robust, bundle_adjust_robust_sparse
+    from visual_slam_tpu_torch.utils.tree import to_device
+
+    problem = to_device(pending["problem"], dev)
+    solve = bundle_adjust_robust_sparse if pending["sparse"] else bundle_adjust_robust
+    n1 = max(ocfg.n_iter // 2, 1)
+    return device_ms(lambda: solve(problem, n_iter=n1, n_iter2=max(ocfg.n_iter - n1, 1), huber=ocfg.huber_delta / FOCAL,
+                                   lam0=ocfg.lm_lambda0, trim_factor=3.0), n=n, warmup=1)[0]
+
+
+def heavy_summary(c) -> dict:
+    """``heavy_counters``' dict for a report: counts, and host ms medians."""
+    med = lambda x: statistics.median(x) if x else None  # noqa: E731
+    return dict(async_chunks=c["async_chunks"], sync_chunks=c["sync_chunks"], cooloffs=c["cooloffs"],
+                corrections=c["corrections"], max_scale_dev=c["max_scale_dev"], solves_dense=c["solves_dense"],
+                solves_sparse=c["solves_sparse"], dense_buckets=sorted(c["dense_buckets"]),
+                closing_ba_sparse=c["closing_ba_sparse"],
+                async_start_ms_median=med(c["async_start_ms"]), async_finish_ms_median=med(c["async_finish_ms"]),
+                side_stream=all(c["side_stream"]) if c["side_stream"] else None)
+
+
+def run_full_pipeline(torch, np, dev, counters, async_boundary=False, sync_check=False):
     """The deployment bench.bench_full_pipeline times, through the port's
     entry points: CompiledSLAM(camera, config).track() per frame, flush(),
     trajectory(). Bootstrap within 16 frames, warm through two heavy cycles
     (host syncs counted there), a timed window aligned to the chunk with
-    flush() inside it. Returns (launches of ``counters`` over the run,
-    report dict); raises if a gate fails."""
+    flush() inside it. ``async_boundary``: the same with
+    ``tracking.async_boundary`` on at its default gates, gated on
+    FP_ASYNC_ATE_PCT_MAX; with ``sync_check`` the host syncs are counted
+    over the whole run (FPS then includes the counting) and no host sync of
+    the solve's code or the boundary's may lie between an async solve's
+    start and the next chunk's fetch. Returns (launches of ``counters``
+    over the run, report dict); raises if a gate fails."""
     import bench
 
     from visual_slam_tpu_torch.backend.ba import bundle_adjust_robust
@@ -1247,6 +1391,9 @@ def run_full_pipeline(torch, np, dev, counters):
     log(f"full pipeline world: {FP_FRAMES} frames {frames[0].shape}, {FP_SPRITES} sprites, step {FP_STEP} m, "
         f"rendered in {time.perf_counter() - t0:.2f} s")
     cfg = fp_config(Config)
+    cfg.tracking.async_boundary = async_boundary
+    name = "full pipeline" + (", async" if async_boundary else "") + (" (syncs counted)" if sync_check else "")
+    ate_max = FP_ASYNC_ATE_PCT_MAX if async_boundary else FP_ATE_PCT_MAX
     cam = PinholeCamera(width=W, height=H, K=np.asarray(K_np, np.float64))
     torch.cuda.reset_peak_memory_stats()
     slam = CompiledSLAM(cam, cfg, device=dev)
@@ -1326,6 +1473,7 @@ def run_full_pipeline(torch, np, dev, counters):
     slam._install_reference = stage("install", slam._install_reference)
     fetch0 = cs_mod.to_host
     cs_mod.to_host = stage("fetch", fetch0)
+    hc = heavy_counters(slam)
 
     for fn in counters:
         fn.launches = 0
@@ -1344,31 +1492,55 @@ def run_full_pipeline(torch, np, dev, counters):
     warm_end = min(i + 2 * max(FP_CHUNK, 4) * FP_HEAVY + 1, n_end - 2 * max(FP_CHUNK, 8))
     chunks0 = seen["chunk"]
     t0 = time.perf_counter()
-    with count_syncs(torch) as sync_at:
+    def tag(stack):
+        """Where a sync lies: out of a solve's window, or in it: in the
+        tracking step (main stream), the landing of the solve at the next
+        boundary, the solve's code, or other boundary code."""
+        if not hc["window"]:
+            return "out"
+        names = {f.name for f in stack}
+        files = {f.filename.split("visual_slam_tpu_torch/")[-1] for f in stack}
+        if "_finish_async_solve" in names:
+            return "window/landing"
+        if files & {"backend/ba.py", "backend/optimizer.py"}:
+            return "window/solve"
+        if "pipeline.py" in files:
+            return "window/step"
+        return "window/other"
+
+    counting = count_syncs(torch, tag=tag)
+    sync_at = counting.__enter__()
+    try:
         while i < warm_end:
             states.append(slam.track([frames[i]], timestamp=i * 0.1)["state"])
             i += 1
         torch.cuda.synchronize()
-    n_warm_chunks = seen["chunk"] - chunks0
-    log(f"warm-up frames {boot + 1}-{warm_end - 1} ({time.perf_counter() - t0:.2f} s, host syncs counted): "
-        f"{n_warm_chunks} chunk boundaries, {seen['heavy']} heavy")
-    per_chunk = sum(sync_at.values()) / max(n_warm_chunks, 1)
-    log(f"host syncs per chunk boundary (warm-up, {n_warm_chunks} chunks of {FP_CHUNK} frames, the chunk's steps "
-        f"included): {per_chunk:.1f}; by source line over the warm-up: {dict(sync_at.most_common())}")
+        if not sync_check:
+            counting.__exit__(None, None, None)
+        n_warm_chunks = seen["chunk"] - chunks0
+        log(f"{name}: warm-up frames {boot + 1}-{warm_end - 1} ({time.perf_counter() - t0:.2f} s, host syncs "
+            f"counted): {n_warm_chunks} chunk boundaries, {seen['heavy']} heavy")
+        per_chunk = sum(sync_at.values()) / max(n_warm_chunks, 1)
+        log(f"{name}: host syncs per chunk boundary (warm-up, {n_warm_chunks} chunks of {FP_CHUNK} frames, the "
+            f"chunk's steps included): {per_chunk:.1f}; by source line over the warm-up: "
+            f"{dict(sync_at.most_common())}")
 
-    heavy_before, chunks_before = seen["heavy"], seen["chunk"]
-    call_ms = []
-    torch.cuda.synchronize()
-    timing["on"] = True
-    t0 = time.perf_counter()
-    for k in range(i, n_end):
-        tc = time.perf_counter()
-        states.append(slam.track([frames[k]], timestamp=k * 0.1)["state"])
-        call_ms.append((time.perf_counter() - tc) * 1e3)
-    slam.flush()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    timing["on"] = False
+        heavy_before, chunks_before = seen["heavy"], seen["chunk"]
+        call_ms = []
+        torch.cuda.synchronize()
+        timing["on"] = True
+        t0 = time.perf_counter()
+        for k in range(i, n_end):
+            tc = time.perf_counter()
+            states.append(slam.track([frames[k]], timestamp=k * 0.1)["state"])
+            call_ms.append((time.perf_counter() - tc) * 1e3)
+        slam.flush()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        timing["on"] = False
+    finally:
+        if sync_check:
+            counting.__exit__(None, None, None)
     cs_mod.to_host = fetch0
     n_chunks = max(seen["chunk"] - chunks_before, 1)
     per_chunk_ms = {k: round(v / n_chunks, 2) for k, v in stage_ms.items()}
@@ -1391,16 +1563,34 @@ def run_full_pipeline(torch, np, dev, counters):
                   keyframes=slam.map.num_keyframes(), landmarks=slam.map.num_map_points(),
                   ba_shapes=[f"{w}x{m}" for (w, m) in shapes], max_call_ms=max(call_ms),
                   heavy_in_window=heavy_timed, lost=states.count("LOST"), brute_recoveries=seen["brute"],
-                  syncs_per_chunk=per_chunk, heavy_ms=heavy_ms, peak_mib=peak, chunk_ms=per_chunk_ms)
-    log(f"full pipeline: FPS {fps:.2f} ({n_timed} frames timed in {dt:.3f} s, flush inside), ATE "
+                  syncs_per_chunk=per_chunk, heavy_ms=heavy_ms, peak_mib=peak, chunk_ms=per_chunk_ms,
+                  **heavy_summary(hc))
+    if async_boundary:
+        report.update(async_solve_device_ms=solve_device_ms(torch, hc["last_async"], cfg.optimization, dev))
+        window = {k: v for k, v in sync_at.items() if k.startswith("window")}
+        report.update(window_syncs=window, window_solve_syncs=sum(
+            v for k, v in window.items() if k.startswith(("window/solve", "window/other"))))
+        log(f"{name}: {json.dumps(report)}")
+        log(f"{name}: async boundaries {hc['async_chunks']} (sync {hc['sync_chunks']}, cooloffs {hc['cooloffs']}, "
+            f"landed with a correction {hc['corrections']}, largest |s - 1| {hc['max_scale_dev']:.3g}); "
+            + ("no async boundary ran within the run's frames" if not hc["async_chunks"] else
+               f"async solve start {report['async_start_ms_median']} ms and landing "
+               f"{report['async_finish_ms_median']} ms of host time (medians), one solve on the side stream "
+               f"{report['async_solve_device_ms']} ms of device time"))
+        if sync_check:
+            log(f"{name}: host syncs between an async solve's start and the next chunk's fetch, by where and source "
+                f"line: {window} ({report['window_solve_syncs']} from the solve's or the boundary's code; the "
+                f"step's run on the main stream, which the side stream's solve does not join, and a landing is "
+                f"the next boundary's fetch of the solve)")
+    log(f"{name}: FPS {fps:.2f} ({n_timed} frames timed in {dt:.3f} s, flush inside), ATE "
         f"{res['rmse']:.4f} m = {ate_pct:.3f} % of a {path_len:.2f} m path (scale-aligned), "
         f"{report['keyframes']} keyframes, {report['landmarks']} landmarks, ba_shapes {report['ba_shapes']}, "
         f"max_call_ms {report['max_call_ms']:.1f}")
-    log(f"full pipeline: {seen['chunk']} chunks, {seen['heavy']} heavy boundaries ({heavy_timed} in the timed "
+    log(f"{name}: {seen['chunk']} chunks, {seen['heavy']} heavy boundaries ({heavy_timed} in the timed "
         f"window), ms per heavy boundary {[round(x, 1) for x in heavy_ms]}, LOST frames {report['lost']}, brute "
         f"recoveries {seen['brute']}, peak device memory {peak:.1f} MiB")
-    log(f"full pipeline BA solves (cost0 -> cost, W x M): {[(c0, c, f'{w}x{m}') for c0, c, w, m in solves]}")
-    log(f"full pipeline host ms per chunk in the timed window ({n_chunks} chunks of {FP_CHUNK} frames, "
+    log(f"{name} BA solves (cost0 -> cost, W x M): {[(c0, c, f'{w}x{m}') for c0, c, w, m in solves]}")
+    log(f"{name} host ms per chunk in the timed window ({n_chunks} chunks of {FP_CHUNK} frames, "
         f"{dt * 1e3 / n_chunks:.1f} ms each): {per_chunk_ms}")
 
     # Launch counts: every detect (the initializer's and each step's) runs K1
@@ -1408,7 +1598,7 @@ def run_full_pipeline(torch, np, dev, counters):
     # K2; every step runs K3 against the arena.
     expected = [seen["detect"] + seen["step"], seen["match"] + seen["step"] + seen["brute_match"],
                 seen["step"], 0, 0]
-    log(f"full pipeline launches K1-K5: {launches} (expected {expected}: {seen['detect']} initializer detects, "
+    log(f"{name} launches K1-K5: {launches} (expected {expected}: {seen['detect']} initializer detects, "
         f"{seen['step']} steps, {seen['match']} initializer matches, {seen['brute_match']} brute-recovery matches)")
 
     if report["lost"]:
@@ -1420,13 +1610,20 @@ def run_full_pipeline(torch, np, dev, counters):
     bad = [(c0, c) for c0, c, _, _ in solves if not (np.isfinite(c0) and np.isfinite(c) and c <= c0)]
     if bad:
         raise AssertionError(f"BA solves not finite or ending above cost0: {bad}")
-    if heavy_timed < 1:
+    if heavy_timed < 1 and not hc["async_chunks"]:
         raise AssertionError("the timed window holds no heavy boundary")
     if launches != expected:
-        raise AssertionError(f"full pipeline launches K1-K5 {launches} != {expected}")
-    if not ate_pct <= FP_ATE_PCT_MAX:
-        raise AssertionError(f"ATE {ate_pct:.3f} % of path above {FP_ATE_PCT_MAX} %")
+        raise AssertionError(f"{name} launches K1-K5 {launches} != {expected}")
+    if not ate_pct <= ate_max:
+        raise AssertionError(f"{name}: ATE {ate_pct:.3f} % of path above {ate_max} %")
+    if async_boundary and hc["side_stream"] and not all(hc["side_stream"]):
+        raise AssertionError(f"{name}: an async solve did not run on the side stream")
+    if sync_check and report["window_solve_syncs"]:
+        raise AssertionError(f"{name}: host syncs of the solve or the boundary between an async solve's start and "
+                             f"the next fetch: {report['window_syncs']}")
 
+    if async_boundary:  # its first heavy boundaries are the sync run's, checked there
+        return launches, report
     # The first heavy boundary's BA, packed problem solved again on the CPU.
     pending = first_heavy.get("pending")
     if pending is None:
@@ -2027,7 +2224,8 @@ def loop_pass(torch, np, slam, frames, T_gt, counters, name, start=0, warm_end=N
     is not OK yet), timing after ``warm_end`` (host syncs per chunk counted
     before it) with ``flush()`` inside the clock; ``save`` = (frame, path)
     checkpoints after that frame (flushed; the save stays off the clock).
-    Returns the pass's report; raises if no kernel of K1-K3 launched."""
+    The report carries ``heavy_counters``' summary. Returns the pass's
+    report; raises if no kernel of K1-K3 launched."""
     import loop_pipeline_world as lpw
 
     from visual_slam_tpu_torch.utils.metrics import ate_rmse
@@ -2043,6 +2241,7 @@ def loop_pass(torch, np, slam, frames, T_gt, counters, name, start=0, warm_end=N
         return run_chunk0()
 
     slam._run_chunk = run_chunk
+    hc = heavy_counters(slam)
     for fn in counters:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -2095,7 +2294,8 @@ def loop_pass(torch, np, slam, frames, T_gt, counters, name, start=0, warm_end=N
                   landmarks=slam.map.num_map_points(), chunks=chunks["n"],
                   closures=stats["closures"], detects=len(stats["detect_ms"]),
                   detect_ms_median=statistics.median(stats["detect_ms"]) if stats["detect_ms"] else None,
-                  launches_k1_k5=launches, peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+                  launches_k1_k5=launches, peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                  **heavy_summary(hc))
     for f in stats["funnels"]:
         log(f"loop pipeline {name}: detect at kf {f['kf']} (frame {f['frame']}) {f['ms']} ms, shortlist "
             f"{f['shortlist']}, top-2 matches {f['top']}, PnP inliers {f['inliers']}, candidate {f['candidate']}")
@@ -2182,6 +2382,41 @@ def run_loop_pipeline(torch, np, dev, counters):
                                                   lpw.small_ring_config(Config), device=dev),
                           small_frames, T_s, counters, "small")
         total = [a + b for a, b in zip(total, small["launches_k1_k5"])]
+    # The heavy boundary's modes on the ring, loop closing on: async
+    # boundaries at their default gates, then the sparse landmark-major BA
+    # (sparse_obs="auto": every solve of this configuration, whose pose
+    # bucket floor is 32, and one more global BA over the final map, timed).
+    modes = {}
+    for mode in ("async", "sparse"):
+        cfg = lpw.loop_config(Config, True)
+        if mode == "async":
+            cfg.tracking.async_boundary = True
+        else:
+            cfg.optimization.sparse_obs = "auto"
+        slam = CompiledSLAM(cam, cfg, device=dev)
+        modes[mode] = loop_pass(torch, np, slam, frames, T_gt, counters, mode,
+                                warm_end=lambda i: lpw.warm_end(i, len(frames)))
+        total = [a + b for a, b in zip(total, modes[mode]["launches_k1_k5"])]
+        if mode == "sparse":
+            layouts = []
+            start0 = slam.optimizer.solve_start
+
+            def solve_start(*a, **k):
+                pending = start0(*a, **k)
+                layouts.append(pending["sparse"])
+                return pending
+
+            slam.optimizer.solve_start = solve_start
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ga = slam.map.optimize_global(slam.optimizer)
+            torch.cuda.synchronize()
+            modes[mode].update(final_global_ba_ms=(time.perf_counter() - t) * 1e3, final_global_ba_sparse=layouts,
+                               final_global_ba_shape=sorted(slam.optimizer.shapes_seen)[-1],
+                               final_global_ba_cost=(ga.get("cost0"), ga.get("cost")))
+            log(f"loop pipeline sparse: one global BA over the final map ({slam.map.num_keyframes()} keyframes, "
+                f"{slam.map.num_map_points()} landmarks) in {modes[mode]['final_global_ba_ms']:.1f} ms, layouts "
+                f"{layouts}, cost {modes[mode]['final_global_ba_cost']}")
 
     # Gates (section 4 of the phase's description in the module docstring).
     fails = []
@@ -2216,10 +2451,91 @@ def run_loop_pipeline(torch, np, dev, counters):
         f"off {off['fps']:.2f}, resumed {res['fps']:.2f}; closures on {len(on['closures'])}, resumed "
         f"{len(res['closures'])}, small ring {None if small is None else len(small['closures'])}; launches K1-K5 "
         f"{total}")
+    for mode, r in modes.items():
+        lim = max(2 * LP_JAX[f"{mode}_ate_pct"], LP_ATE_PCT_FLOOR)
+        if r["lost"] or r["state"] != "OK":
+            fails.append(f"{mode}: {r['lost']} LOST frames, state {r['state']}")
+        if not r["ate_pct_of_path"] <= lim:
+            fails.append(f"{mode}: ATE {r['ate_pct_of_path']:.3f} % of path above {lim:.3f} %")
+        if r["launches_k1_k5"][3] < 1:
+            fails.append(f"{mode}: K4 never launched")
+    if not modes["async"]["async_chunks"]:
+        fails.append("async: no async boundary ran")
+    if not (modes["async"]["side_stream"] is not False):
+        fails.append("async: an async solve did not run on the side stream")
+    sp = modes["sparse"]
+    # Every solve from the sparse_auto_min_window bucket on is sparse (the
+    # bootstrap's two-view solve, bucket 2, stays dense by the same rule).
+    min_w = lpw.loop_config(Config, True).optimization.sparse_auto_min_window
+    if any(w >= min_w for w in sp["dense_buckets"]) or not sp["solves_sparse"] or not all(sp["closing_ba_sparse"]):
+        fails.append(f"sparse: dense solves at pose buckets {sp['dense_buckets']}, sparse {sp['solves_sparse']}, "
+                     f"closing BA {sp['closing_ba_sparse']}")
+    if sp["final_global_ba_sparse"] != [True]:
+        fails.append(f"sparse: the final global BA's layouts {sp['final_global_ba_sparse']}")
+    for mode, r in modes.items():
+        cl = r["closures"]
+        ba_ms = [round(c.get("global_ba_ms", 0), 1) for c in cl]
+        dense_ms = [round(c.get("global_ba_ms", 0), 1) for c in on["closures"]]
+        log(f"loop pipeline {mode}: closures at frames {[c['frame'] for c in cl]} (global BA ms {ba_ms}, dense on "
+            f"pass {dense_ms}), "
+            f"ATE {r['ate_pct_of_path']:.3f} % (gate {max(2 * LP_JAX[f'{mode}_ate_pct'], LP_ATE_PCT_FLOOR):.3f}), FPS "
+            f"{r['fps']:.2f} (dense sync on pass {on['fps']:.2f}), async boundaries {r['async_chunks']}, landed "
+            f"corrections {r['corrections']} (largest |s - 1| {r['max_scale_dev']:.3g}), K4 launches "
+            f"{r['launches_k1_k5'][3]}, solves dense / sparse {r['solves_dense']} / {r['solves_sparse']}")
     if fails:
         raise AssertionError("loop pipeline gates: " + "; ".join(fails))
-    k4 = on["launches_k1_k5"][3] + res["launches_k1_k5"][3] + (small["launches_k1_k5"][3] if small else 0)
+    k4 = sum(r["launches_k1_k5"][3] for r in (on, res, small, *modes.values()) if r)
     return total, k4, captured[1] if captured else None
+
+
+def run_ba_layouts(torch, np, dev) -> list[dict]:
+    """Dense against sparse landmark-major BA at scripts/bench_ba_sparse.py's
+    shapes (BA_SHAPES; its problem, rebuilt in numpy by tests/ba_world.py):
+    ``bundle_adjust`` and ``bundle_adjust_sparse`` with 20 LM iterations,
+    host+device wall of a synchronised solve (median and min of BA_REPS
+    after one warm-up), device ms (CUDA events around BA_REPS back-to-back
+    solves), host syncs inside one solve, both final costs and the largest
+    pose difference. Fails on a non-finite or rising cost, a sparse cost
+    more than BA_COST_RTOL from the dense one, or a host sync inside a
+    solve. Returns one dict per shape."""
+    import ba_world
+
+    from visual_slam_tpu_torch.backend.ba import BAProblem, BASparse, bundle_adjust, bundle_adjust_sparse
+    from visual_slam_tpu_torch.utils.tree import to_device
+
+    rows = []
+    for W_, M, K in BA_SHAPES:
+        dense, sparse = ba_world.make_problem(W_, M, K)
+        row = dict(phase="ba_layouts", W=W_, M=M, K=K, n_obs=int(dense["obs_valid"].sum()))
+        poses = {}
+        for layout, solve, problem in (("dense", bundle_adjust, to_device(BAProblem(**dense), dev)),
+                                       ("sparse", bundle_adjust_sparse, to_device(BASparse(**sparse), dev))):
+            fn = lambda: solve(problem, n_iter=20)  # noqa: E731
+            med, mn = timed(fn, reps=BA_REPS, warmup=1)
+            dms, gapless = device_ms(fn, n=BA_REPS, warmup=1)
+            torch.cuda.synchronize()
+            with count_syncs(torch) as syncs:
+                T, _, info = fn()
+            torch.cuda.synchronize()
+            c0, c = float(info["cost0"]), float(info["cost"])
+            poses[layout] = T.cpu().numpy()
+            row.update({f"{layout}_ms": med, f"{layout}_ms_min": mn, f"{layout}_device_ms": dms,
+                        f"{layout}_device_gapless": gapless,
+                        f"{layout}_syncs": sum(syncs.values()), f"{layout}_cost0": c0, f"{layout}_cost": c})
+            if not (np.isfinite(c) and c <= c0):
+                raise AssertionError(f"BA {layout} {W_}x{M}x{K}: cost {c0} -> {c}")
+            if syncs:
+                raise AssertionError(f"BA {layout} {W_}x{M}x{K}: host syncs inside the solve {dict(syncs)}")
+        row["max_pose_diff"] = float(np.abs(poses["dense"] - poses["sparse"]).max())
+        rows.append(row)
+        log(f"BA W={W_} M={M} K={K} ({row['n_obs']} observations, 20 iterations): dense {row['dense_ms']:.2f} ms "
+            f"(device {row['dense_device_ms']:.2f}), sparse {row['sparse_ms']:.2f} ms (device "
+            f"{row['sparse_device_ms']:.2f}); syncs per solve {row['dense_syncs']} / {row['sparse_syncs']}; cost "
+            f"{row['dense_cost']:.6g} / {row['sparse_cost']:.6g}; poses differ by {row['max_pose_diff']:.2e}")
+        if abs(row["sparse_cost"] - row["dense_cost"]) > BA_COST_RTOL * abs(row["dense_cost"]):
+            raise AssertionError(f"BA {W_}x{M}x{K}: sparse cost {row['sparse_cost']} vs dense {row['dense_cost']}")
+    log(json.dumps({"ba_layouts": rows}))
+    return rows
 
 
 def run_pose_graphs(torch, np, dev):
@@ -2400,6 +2716,12 @@ def main() -> int:
     run_pose_graphs(torch, np, dev)
     loop_launches = run_loop_path(torch, np, step, dev, counters)
     fp_launches, _ = run_full_pipeline(torch, np, dev, counters)
+    # The async heavy boundary on the same deployment: measured, then again
+    # with the host syncs counted over the whole run.
+    for check in (False, True):
+        more, _ = run_full_pipeline(torch, np, dev, counters, async_boundary=True, sync_check=check)
+        fp_launches = [a + b for a, b in zip(fp_launches, more)]
+    run_ba_layouts(torch, np, dev)
     facade_launches = run_facade_phases(torch, np, dev, counters)
     depth = run_depth_facade_phases(torch, np, dev, (LaunchSum(patches_and_moments_levels,
                                                                patches_and_moments_batched), *counters[1:]))
@@ -2418,8 +2740,9 @@ def main() -> int:
             raise AssertionError(f"{row['name']}: no launch in the RGB-D phases")
     if rgbd["k1_batched"] or rgbd["k4"]:
         raise AssertionError(f"RGB-D phases launched the batched K1 {rgbd['k1_batched']} and K4 {rgbd['k4']} times")
-    log("launches per kernel (tracking, loop path, full pipeline, facade phases, stereo facade phases, loop "
-        f"pipeline phases): {[(r['name'], *part) for r, part in zip(rows, parts)]}; K5 has no caller on any path; "
+    log("launches per kernel (tracking, loop path, full pipeline with its two async runs, facade phases, stereo "
+        "facade phases, loop pipeline phases with the async and sparse passes): "
+        f"{[(r['name'], *part) for r, part in zip(rows, parts)]}; K5 has no caller on any path; "
         f"batched (multiseq phase; stereo phases) and RGB-D phases: "
         f"{[(r['name'], r['launches']) for r in rows[len(parts):]]}")
     # K4 at the ring's own shortlist shapes: the on pass's fullest detect.

@@ -126,8 +126,6 @@ def test_reimpose_mono_gauge_exact_float64():
 
 
 @pytest.mark.parametrize("opt,value,window", [
-    ("sparse_obs", True, 8),
-    ("sparse_obs", "auto", 32),  # the JAX package picks sparse off the TPU here
     ("lm_minor", True, 8),
 ])
 def test_unported_layouts_raise(opt, value, window):
@@ -142,4 +140,4 @@ def test_auto_layouts_resolve_to_dense():
     cfg = Config()
     cfg.optimization.sparse_obs = "auto"
     cfg.optimization.lm_minor = "auto"
-    LMOptimizer(cfg, SimpleNamespace(K=np.eye(3)), device="cpu")._check_layout(8)  # no raise
+    assert LMOptimizer(cfg, SimpleNamespace(K=np.eye(3)), device="cpu")._use_sparse(8) is False  # no raise

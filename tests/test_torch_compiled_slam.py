@@ -353,7 +353,6 @@ def test_adopt_device_keyframe_drops_stale_inherits():
 @pytest.mark.parametrize("section,key,value", [
     ("camera", "sensor_type", "stereo"),
     ("camera", "sensor_type", "rgbd"),
-    ("optimization", "async_ba", True),
     ("feature", "ragged_descriptors", True),
 ])
 def test_unported_switches_raise(section, key, value):
@@ -362,12 +361,3 @@ def test_unported_switches_raise(section, key, value):
     with pytest.raises(NotImplementedError):
         CompiledSLAM(PinholeCamera(width=320, height=240, K=np.diag([300.0, 300.0, 1.0])), cfg, device="cpu")
 
-
-def test_async_boundary_and_serialization_raise():
-    cfg = small_config()
-    cfg.tracking.chunk_size = 4
-    cfg.tracking.device_promotion = True
-    cfg.tracking.async_boundary = True
-    cam = PinholeCamera(width=320, height=240, K=np.diag([300.0, 300.0, 1.0]))
-    with pytest.raises(NotImplementedError):
-        CompiledSLAM(cam, cfg, device="cpu")

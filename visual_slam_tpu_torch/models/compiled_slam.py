@@ -20,18 +20,27 @@ or in chunks of ``tracking.chunk_size`` frames:
   the compact structure (``pipeline.make_compact_chunk``) brings the
   decision scalars and the promoted frames' blocks, the host replays the
   promotions into map keyframes and landmarks, enforces the landmark
-  budget, and every ``heavy_boundary_every``-th promotion runs the dense
-  LM/Schur bundle adjustment and re-installs the corrected reference.
+  budget, and every ``heavy_boundary_every``-th promotion runs the
+  LM/Schur bundle adjustment (dense, or sparse landmark-major with
+  ``optimization.sparse_obs``) and re-installs the corrected reference;
+* async heavy boundaries (``tracking.async_boundary``, self-promoting
+  chunks, once the map holds ``async_boundary_min_kfs`` keyframes and
+  outside the ``async_boundary_cooloff`` boundaries after thin tracking):
+  the solve started at one boundary runs on a side CUDA stream and lands
+  at the next, whose device state is carried into the post-solve world by
+  one similarity correction (``pipeline.apply_correction``) instead of a
+  reference re-install.
 
-A frame below ``min_inliers`` gets a brute multi-keyframe recovery before
-it is declared LOST; a LOST system relocalizes against recent keyframes.
-Keyframe features stay on the device; their host views are filled from
-the fetch that brought them.
+With ``optimization.async_ba`` the keyframe-boundary solve of the per-frame
+and plain-chunk paths likewise lands at the next boundary (triangulation
+uses the pre-solve poses). A frame below ``min_inliers`` gets a brute
+multi-keyframe recovery before it is declared LOST; a LOST system
+relocalizes against recent keyframes. Keyframe features stay on the
+device; their host views are filled from the fetch that brought them.
 
 Not ported yet, each raising ``NotImplementedError`` when its switch is
-on: stereo and RGB-D sensors (ROADMAP M9b), async boundaries
-(``tracking.async_boundary``), ``optimization.async_ba`` and ragged
-descriptors.
+on: stereo and RGB-D sensors (ROADMAP M9b), landmark-minor bundle
+adjustment (``optimization.lm_minor``) and ragged descriptors.
 
 ``save(path)`` checkpoints the map, the trajectory and the config in the
 JAX package's format; ``CompiledSLAM.resume(path, camera, device=...)``
@@ -59,6 +68,8 @@ from ..ops.triangulation import triangulate_gated
 from ..pipeline import (
     PromoteRecord,
     TrackOutput,
+    apply_correction,
+    correction_similarity,
     init_track_state,
     make_compact_chunk,
     make_track_chunk,
@@ -97,12 +108,9 @@ class CompiledSLAM:
                                       "ROADMAP M9b")
         if fcfg.ragged_descriptors:
             raise NotImplementedError("ragged descriptors are not ported yet")
-        if ocfg.async_ba:
-            raise NotImplementedError("optimization.async_ba is not ported yet")
         self._chunk_size = max(1, int(tcfg.chunk_size))
         self._dev_promo = bool(tcfg.device_promotion) and self._chunk_size > 1
-        if tcfg.async_boundary and self._dev_promo:
-            raise NotImplementedError("tracking.async_boundary is not ported yet")
+        self._async_ba = bool(ocfg.async_ba)
         self.map = Map(max_frames=self.config.map.max_frames)
         self.optimizer = LMOptimizer(self.config, camera, logger=self.logger, device=self.device)
         self.state = State.NO_IMAGES_YET
@@ -152,11 +160,19 @@ class CompiledSLAM:
                             if self._dev_promo and self._compact_P > 0 else None)
         self._chunk_buf: list[tuple[object, float]] = []  # (host image, timestamp)
         self._promos_since_heavy = 0
+        # Async heavy boundaries: the solve in flight ({"pending", "anchor",
+        # "T_pre"}), the sync boundaries left after thin tracking, and the
+        # device-chained frames-since-reference and reference pose.
+        self._async_mode = bool(tcfg.async_boundary) and self._dev_promo
+        self._async_bnd: Optional[dict] = None
+        self._async_cooloff = 0
+        self._prev_chunk_async = False
+        self._dev_fsr = self._dev_T_ref = None
         # Previous frame's step output, deferred for the host decision:
         # (out, timestamp, ref_kf, arena) as they were when it was tracked.
         self._pending = None
         self._lm_arena: list[Optional[MapPoint]] = []
-        self._ba_pending = None
+        self._ba_pending = None  # optimization.async_ba: the solve in flight
         self._ref_kf: KeyFrame | None = None
         self._feature_tracker = FeatureTracker(fcfg, device=self.device)
         self._initializer = Initializer(camera, self.config, self._feature_tracker, self.map, logger=self.logger)
@@ -195,6 +211,7 @@ class CompiledSLAM:
         if self._pending is not None:
             pending, self._pending = self._pending, None
             info = self._decide(*pending)
+        self._finish_async_solve(correct_device=True)
         return info
 
     def trajectory(self) -> tuple[np.ndarray, np.ndarray]:
@@ -352,6 +369,9 @@ class CompiledSLAM:
         return to_device(np.asarray(T, np.float32), self.device)
 
     def _install_reference(self, kf: KeyFrame, T_init: np.ndarray) -> None:
+        # A solve in flight targeted the state this install rebuilds from the
+        # host: land its writeback first; its device correction is moot.
+        self._finish_async_solve(correct_device=False)
         pos, mask = kf.point_arrays(0)
         feats = to_device(kf.get_features(0), self.device)
         if self._track_state is None:
@@ -361,6 +381,9 @@ class CompiledSLAM:
             pos, mask, T0 = to_device((pos, mask, np.asarray(T_init, np.float32)), self.device)
             self._track_state = swap_reference(self._track_state, feats, pos, mask)._replace(T_w2c=T0)
         self._ref_kf = kf
+        if self._async_mode:  # the device-chained promotion counters restart at this reference
+            self._dev_fsr = torch.zeros((), dtype=torch.int32, device=self.device)
+            self._dev_T_ref = self._dev_pose(T_init)
         if self._arena_size:
             self._refresh_arena()
 
@@ -429,6 +452,20 @@ class CompiledSLAM:
         while len(imgs) < self._chunk_size:  # flush pads; padded outputs are ignored
             imgs.append(imgs[-1])
         if self._dev_promo:
+            if self._use_async_boundary():
+                if not self._prev_chunk_async:
+                    # sync -> async: the sync boundaries seed fsr and T_ref
+                    # from the host and drop the device's chain; start the
+                    # chain again from the host's values.
+                    self._dev_fsr = torch.full((), self._frames_since_kf, dtype=torch.int32, device=self.device)
+                    self._dev_T_ref = self._dev_pose(self._ref_kf.T_w2c)
+                self._prev_chunk_async = True
+                return self._run_chunk_devpromo_async(imgs, buf, n)
+            self._prev_chunk_async = False
+            # async -> sync: land the solve in flight (writeback and device
+            # correction) before this chunk runs, so it runs in the
+            # post-solve world.
+            self._finish_async_solve(correct_device=True)
             return self._run_chunk_devpromo(imgs, buf, n)
         ref_kf, arena = self._ref_kf, self._lm_arena
         T_ref_snap = ref_kf.T_w2c.copy()
@@ -489,21 +526,25 @@ class CompiledSLAM:
             self.logger.warning("compiled tracking lost (chunk, %d inliers)", int(n_inl_all[last]))
         return info
 
-    def _run_chunk_devpromo(self, imgs, buf, n: int) -> dict:
-        """Boundary of the self-promoting chunk: the device already swapped
-        its reference at every triggered frame; the host replays the
-        promotions into map keyframes and landmarks from one fetch, runs BA
-        on the heavy cadence and re-installs the corrected state only then."""
-        ref_kf, arena = self._ref_kf, self._lm_arena
-        T_ref_snap = ref_kf.T_w2c.copy()
-        self._track_state, _fsr, _T_ref, outs, recs = self._chunk(
-            self._track_state, self._frames_since_kf, ref_kf.T_w2c, self._stack_imgs(imgs), n_valid=n,
-        )
-        ts_tuple = tuple(t for _, t in buf)
-        self.poses.append((ts_tuple, outs.T_w2c[:n], ref_kf, T_ref_snap))
+    def _use_async_boundary(self) -> bool:
+        """Async boundaries only on a mature map (``async_boundary_min_kfs``
+        keyframes) and outside the cooloff after thin tracking
+        (``async_boundary_cooloff`` boundaries)."""
+        if not self._async_mode:
+            return False
+        tcfg = self.config.tracking
+        if self.map.num_keyframes() < tcfg.async_boundary_min_kfs:
+            return False
+        if self._async_cooloff > 0:
+            self._async_cooloff -= 1
+            return False
+        return True
 
-        # One fetch per chunk: the compact structure (decision scalars and
-        # the promoted frames' blocks), or the whole output on slot overflow.
+    def _fetch_chunk(self, outs, recs, n: int):
+        """One fetch per chunk: the compact structure (decision scalars and
+        the promoted frames' blocks), or the whole output on slot overflow.
+        Returns (comp, comp_dev, outs_h, recs_h, inliers (n,), promoted (n,),
+        T_w2c (C, 4, 4)); comp is None after a whole fetch."""
         comp = comp_dev = outs_h = recs_h = None
         if self._compact_fn is not None:
             comp_dev = self._compact_fn(outs, recs)
@@ -514,22 +555,18 @@ class CompiledSLAM:
                 comp = comp_dev = None
         if comp is None:
             outs_h, recs_h = to_host((outs, recs))
-            n_inl_all = np.asarray(outs_h.n_inliers)[:n]
-            promoted = np.asarray(recs_h.promoted)[:n]
-            T_all_np = np.asarray(outs_h.T_w2c)
-        else:
-            n_inl_all = np.asarray(comp.n_inliers)[:n]
-            promoted = np.asarray(comp.promoted)[:n]
-            T_all_np = np.asarray(comp.T_w2c)
-        tcfg = self.config.tracking
-        last = n - 1
-        info = {"state": self.state.name, "n_inliers": int(n_inl_all[last]), "chunk_frames": n}
-        self.logger.debug("chunk(devpromo): inliers %s promoted %s", n_inl_all.tolist(),
-                          np.nonzero(promoted)[0].tolist())
-        promo_idx = np.nonzero(promoted)[0]
-        cur_ref = ref_kf
-        new_kfs = []
-        for s, f in enumerate(promo_idx):
+            return None, None, outs_h, recs_h, np.asarray(outs_h.n_inliers)[:n], np.asarray(recs_h.promoted)[:n], \
+                np.asarray(outs_h.T_w2c)
+        return comp, comp_dev, None, None, np.asarray(comp.n_inliers)[:n], np.asarray(comp.promoted)[:n], \
+            np.asarray(comp.T_w2c)
+
+    def _adopt_chunk(self, fetched, outs, ts_tuple, ref_kf, arena, U=None) -> list[KeyFrame]:
+        """Replay the chunk's promotions into map keyframes, in order; with
+        a correction ``U`` = (R_u, t_u, s) each promoted pose and its
+        landmarks are carried into the corrected world first."""
+        comp, comp_dev, outs_h, recs_h, n_inl_all, promoted, T_all_np = fetched
+        cur_ref, new_kfs = ref_kf, []
+        for s, f in enumerate(np.nonzero(promoted)[0]):
             if comp is not None:
                 # Slot s of the compact structure is the s-th promoted frame.
                 out_f = TrackOutput(
@@ -547,21 +584,70 @@ class CompiledSLAM:
                     features=Features(*[a[f].clone() for a in outs.features]))
                 host_feats = tree_map(lambda a: a[f], outs_h.features)
                 rec_f = tree_map(lambda a: a[f], recs_h)
+            if U is not None:
+                R_u, t_u, sc = U
+                T = np.asarray(out_f.T_w2c, np.float64).copy()
+                T[:3, :3] = T[:3, :3] @ R_u.T
+                T[:3, 3] = sc * T[:3, 3] - T[:3, :3] @ t_u
+                out_f = out_f._replace(T_w2c=T)
+                rec_f = rec_f._replace(ref_pos=sc * np.asarray(_np(rec_f.ref_pos), np.float64) @ R_u.T + t_u)
             kf = self._adopt_device_keyframe(out_f, rec_f, ts_tuple[f], cur_ref, arena, host_feats=host_feats)
             if comp is not None and self.loop_closing is not None:
                 # The signature came with the same fetch.
                 self.loop_closing.note_signature(kf.keyframe_id, np.asarray(comp.sig)[s])
             new_kfs.append(kf)
             cur_ref = kf
+        return new_kfs
+
+    def _anchor_chunk(self, ts_tuple, promo_idx, new_kfs, snaps) -> None:
+        """From each promotion on, the chunk's frames follow the keyframe
+        they were tracked against: the last pose block (the chunk's) is
+        split at the promoted frames, each part anchored to its keyframe at
+        ``snaps`` (the keyframe's pose in the world the chunk tracked in)."""
+        n = len(ts_tuple)
+        _, T_blk, ref_kf, T_ref_snap = self.poses.pop()
+        cuts = [0, *[int(f) for f in promo_idx], n]
+        anchors = [(ref_kf, T_ref_snap)] + list(zip(new_kfs, snaps))
+        self.poses += [(ts_tuple[a:b], T_blk[a:b], kf, snap)
+                       for a, b, (kf, snap) in zip(cuts[:-1], cuts[1:], anchors) if b > a]
+
+    def _chunk_tail(self, info, n_inl_all, outs, ts_tuple, what: str) -> dict:
+        """A chunk whose newest frame tracked under ``min_inliers``: brute
+        recovery, else LOST."""
+        last = len(ts_tuple) - 1
+        if n_inl_all[last] < self.config.tracking.min_inliers:
+            rec = self._brute_recover(tree_map(lambda a: a[last], outs), ts_tuple[-1])
+            if rec is not None:
+                info.update(rec)
+                return info
+            self.state = State.LOST
+            info["state"] = self.state.name
+            self.logger.warning("compiled tracking lost (%s chunk, %d inliers)", what, int(n_inl_all[last]))
+        return info
+
+    def _run_chunk_devpromo(self, imgs, buf, n: int) -> dict:
+        """Boundary of the self-promoting chunk: the device already swapped
+        its reference at every triggered frame; the host replays the
+        promotions into map keyframes and landmarks from one fetch, runs BA
+        on the heavy cadence and re-installs the corrected state only then."""
+        ref_kf, arena = self._ref_kf, self._lm_arena
+        T_ref_snap = ref_kf.T_w2c.copy()
+        self._track_state, _fsr, _T_ref, outs, recs = self._chunk(
+            self._track_state, self._frames_since_kf, ref_kf.T_w2c, self._stack_imgs(imgs), n_valid=n,
+        )
+        ts_tuple = tuple(t for _, t in buf)
+        self.poses.append((ts_tuple, outs.T_w2c[:n], ref_kf, T_ref_snap))
+        fetched = self._fetch_chunk(outs, recs, n)
+        n_inl_all, promoted, T_all_np = fetched[4:]
+        tcfg = self.config.tracking
+        last = n - 1
+        info = {"state": self.state.name, "n_inliers": int(n_inl_all[last]), "chunk_frames": n}
+        self.logger.debug("chunk(devpromo): inliers %s promoted %s", n_inl_all.tolist(),
+                          np.nonzero(promoted)[0].tolist())
+        promo_idx = np.nonzero(promoted)[0]
+        new_kfs = self._adopt_chunk(fetched, outs, ts_tuple, ref_kf, arena)
         if new_kfs:
-            # From each promotion on, frames follow the keyframe they were
-            # tracked against: a promoted frame is its keyframe's pose, and
-            # the frames after it take that keyframe's later corrections.
-            cuts = [0, *[int(f) for f in promo_idx], n]
-            anchors = [(ref_kf, T_ref_snap)] + [(kf, kf.T_w2c.copy()) for kf in new_kfs]
-            T_blk = self.poses.pop()[1]
-            self.poses += [(ts_tuple[a:b], T_blk[a:b], kf, snap)
-                           for a, b, (kf, snap) in zip(cuts[:-1], cuts[1:], anchors) if b > a]
+            self._anchor_chunk(ts_tuple, promo_idx, new_kfs, [kf.T_w2c.copy() for kf in new_kfs])
             kf_last = new_kfs[-1]
             self._frames_since_kf = last - int(promo_idx[-1])
             self._enforce_budget()
@@ -585,15 +671,81 @@ class CompiledSLAM:
             info["new_keyframe"] = True
         else:
             self._frames_since_kf += n
-        if n_inl_all[last] < tcfg.min_inliers:
-            rec = self._brute_recover(tree_map(lambda a: a[last], outs), ts_tuple[-1])
-            if rec is not None:
-                info.update(rec)
-                return info
-            self.state = State.LOST
-            info["state"] = self.state.name
-            self.logger.warning("compiled tracking lost (devpromo chunk, %d inliers)", int(n_inl_all[last]))
-        return info
+        return self._chunk_tail(info, n_inl_all, outs, ts_tuple, "devpromo")
+
+    def _run_chunk_devpromo_async(self, imgs, buf, n: int) -> dict:
+        """Async boundary of the self-promoting chunk: the solve started at
+        the previous boundary lands here (``_finish_async_solve``: writeback,
+        loop closing, one correction of the device carry), this chunk's
+        promotions are adopted in the corrected world, and this boundary's
+        own solve is started to land at the next one. fsr and T_ref chain on
+        the device between chunks; the host does not seed them."""
+        ref_kf, arena = self._ref_kf, self._lm_arena
+        T_ref_snap = ref_kf.T_w2c.copy()
+        self._track_state, self._dev_fsr, self._dev_T_ref, outs, recs = self._chunk(
+            self._track_state, self._dev_fsr, self._dev_T_ref, self._stack_imgs(imgs), n_valid=n,
+        )
+        ts_tuple = tuple(t for _, t in buf)
+        self.poses.append((ts_tuple, outs.T_w2c[:n], ref_kf, T_ref_snap))
+        fetched = self._fetch_chunk(outs, recs, n)
+        n_inl_all, promoted, T_all_np = fetched[4:]
+        tcfg = self.config.tracking
+        last = n - 1
+        info = {"state": self.state.name, "n_inliers": int(n_inl_all[last]), "chunk_frames": n}
+        if int(n_inl_all.min()) < 2 * tcfg.min_inliers:
+            # Tracking thinned inside this chunk: the similarity correction
+            # is too coarse near the edge, so the next boundaries run
+            # synchronously (an exact post-BA reference install).
+            self._async_cooloff = max(self._async_cooloff, tcfg.async_boundary_cooloff)
+        U = self._finish_async_solve(correct_device=True)
+        promo_idx = np.nonzero(promoted)[0]
+        new_kfs = self._adopt_chunk(fetched, outs, ts_tuple, ref_kf, arena, U=U)
+        if new_kfs:
+            # The chunk's poses are in the world it tracked in: anchor its
+            # frames to the promoted keyframes' poses there.
+            self._anchor_chunk(ts_tuple, promo_idx, new_kfs, [np.asarray(T_all_np[f], np.float64) for f in promo_idx])
+            kf_last = new_kfs[-1]
+            self._ref_kf = kf_last
+            self._frames_since_kf = last - int(promo_idx[-1])
+            self._enforce_budget()
+            if self._arena_size:
+                self._refresh_arena()
+            heavy = (tcfg.heavy_boundary_every <= 1
+                     or self._promos_since_heavy + len(new_kfs) >= tcfg.heavy_boundary_every)
+            if heavy and self.map.num_keyframes() > 2:
+                self._promos_since_heavy = 0
+                pending = self._start_ba(overlap=True)
+                if pending is not None:
+                    self._async_bnd = {"pending": pending, "anchor": kf_last, "T_pre": kf_last.T_w2c.copy()}
+            else:
+                self._promos_since_heavy += len(new_kfs)
+            info["new_keyframe"] = True
+        else:
+            self._frames_since_kf += n
+        return self._chunk_tail(info, n_inl_all, outs, ts_tuple, "async devpromo")
+
+    def _finish_async_solve(self, correct_device: bool):
+        """Land the solve started at the previous async boundary: write it
+        back, run loop closing on its anchor keyframe and, with
+        ``correct_device``, carry the device state into the post-solve world
+        with one similarity correction (``pipeline.apply_correction``).
+        Returns (R_u, t_u, s) when a correction other than the identity was
+        applied, else None."""
+        if self._async_bnd is None:
+            return None
+        ab, self._async_bnd = self._async_bnd, None
+        anchor = ab["anchor"]
+        g = self._finish_ba(ab["pending"])
+        if self.loop_closing is not None:
+            self.loop_closing.process_keyframe(anchor)
+        if not correct_device:
+            return None
+        s = float(g[0]) if g is not None else 1.0
+        R_u, t_u = correction_similarity(ab["T_pre"], anchor.T_w2c, s)
+        if abs(s - 1.0) < 1e-12 and np.allclose(R_u, np.eye(3), atol=1e-12) and np.allclose(t_u, 0.0, atol=1e-12):
+            return None
+        self._track_state, self._dev_T_ref = apply_correction(self._track_state, self._dev_T_ref, R_u, t_u, s)
+        return R_u, t_u, s
 
     def _new_keyframe(self, feats: Features, host_feats, timestamp: float, T) -> KeyFrame:
         """A keyframe around a (device) feature block, its host views taken
@@ -693,22 +845,26 @@ class CompiledSLAM:
                               self.map.num_map_points(), budget)
         return n
 
-    def _start_ba(self):
+    def _start_ba(self, overlap: bool = False):
         """Start the boundary's solve: global over the whole map while it
         holds at most 2 x window_size keyframes, else the local window.
-        None when there is nothing to solve."""
+        None when there is nothing to solve. ``overlap``: the solve lands at
+        a later boundary, so it runs beside the tracking (``solve_start``)."""
         if self.map.num_keyframes() <= 2:
             return None
         kfs = self.map.get_keyframes()
         if len(kfs) <= 2 * self.config.optimization.window_size:
-            return self.optimizer.optimize_global_start(kfs, self.map.get_map_points())
-        return self._start_local_ba(kfs)
+            return self.optimizer.optimize_global_start(kfs, self.map.get_map_points(), overlap=overlap)
+        return self._start_local_ba(kfs, overlap=overlap)
 
-    def _finish_ba(self, pending) -> None:
+    def _finish_ba(self, pending):
+        """Write back a started solve; returns its mono gauge similarity
+        (s, b), recorded on the map, or None."""
         res = self.optimizer.solve_finish(pending)
         g = res.get("gauge_transform")
         if g is not None:
             self.map.record_gauge_transform(*g)
+        return g
 
     def _boundary_heavy(self, kf: KeyFrame) -> None:
         """BA and loop closing of a self-promoting chunk's boundary; the
@@ -720,12 +876,15 @@ class CompiledSLAM:
             self.loop_closing.process_keyframe(kf)
 
     def _apply_pending_ba(self) -> None:
+        """Land every solve in flight: an async boundary's (with its device
+        correction) and ``async_ba``'s."""
+        self._finish_async_solve(correct_device=True)
         if self._ba_pending is None:
             return
         pending, self._ba_pending = self._ba_pending, None
         self._finish_ba(pending)
 
-    def _start_local_ba(self, kfs):
+    def _start_local_ba(self, kfs, overlap: bool = False):
         window = kfs[-self.config.optimization.window_size:]
         points = {}
         for kf in window:
@@ -739,7 +898,8 @@ class CompiledSLAM:
                 if kf_id not in window_ids:
                     anchor_ids.add(kf_id)
         anchors = [kf for kf in kfs if kf.keyframe_id in anchor_ids]
-        return self.optimizer.optimize_local_start(window, list(points.values()), fixed_keyframes=anchors)
+        return self.optimizer.optimize_local_start(window, list(points.values()), fixed_keyframes=anchors,
+                                                   overlap=overlap)
 
     def _decide(self, out, timestamp, ref_kf, arena) -> dict:
         n_inl, n_match, T_prev = to_host((out.n_inliers, out.n_matches, out.T_w2c))
@@ -866,7 +1026,16 @@ class CompiledSLAM:
         self._frames_since_kf = 0
         self._enforce_budget()
         created = 0
-        if heavy:
+        if heavy and self._async_ba:
+            # The solve lands at the next boundary; the new landmarks are
+            # triangulated from the pre-solve poses the next frames track in.
+            self._ba_pending = self._start_ba(overlap=True)
+            if tri_mask.any():
+                pts_np, good_np = to_host(self._triangulate_dispatch(kf, ref, ti))
+                created = self._insert_triangulated(kf, ref, ti, tri_mask, pts_np, good_np)
+            if self.loop_closing is not None:
+                self.loop_closing.process_keyframe(kf)
+        elif heavy:
             # The solve starts first (it excludes the new triangulations,
             # which join the next one); triangulation chains on the solve's
             # device output poses for ref and kf, so the new landmarks are

@@ -503,10 +503,10 @@ def apply_correction(state: TrackState, T_ref, R_u, t_u, s):
     """Re-anchor a device tracking state into a corrected world frame:
     landmarks move by x' = s R_u x + t_u, w2c poses by R' = R R_u^T,
     t' = s t - R' t_u (reprojections unchanged), and the motion model's
-    translation scales by s. Returns (state, T_ref)."""
-    R_u = torch.as_tensor(R_u, dtype=torch.float32).to(state.T_w2c.device)
-    t_u = torch.as_tensor(t_u, dtype=torch.float32).to(state.T_w2c.device)
-    s = torch.as_tensor(s, dtype=torch.float32).to(state.T_w2c.device)
+    translation scales by s. Returns (state, T_ref). Host values upload
+    through pinned memory without waiting (a plain copy to the card would
+    synchronise)."""
+    R_u, t_u, s = to_device(tuple(np.asarray(x, np.float32) for x in (R_u, t_u, s)), state.T_w2c.device)
 
     def fix_pose(T):
         R = T[:3, :3] @ R_u.T
