@@ -12,8 +12,9 @@
    call, and the bound (bytes over the HBM rate or operations over the
    peak) with the share of it reached. The batched forms of K1, K2 and K3
    (the batched VO step's, B = 4 at the same shapes) likewise, each also
-   held at B = 1 to its one-sequence kernel, and the batched K1 at the
-   stereo facade's B = 2 (its world's first pair). K1, K2 and K3 again at
+   held at B = 1 to its one-sequence kernel, the batched K1 at the stereo
+   facade's B = 2 (its world's first pair), and at the batched stereo
+   step's B = 8 (four pairs, after the stereo step phase). K1, K2 and K3 again at
    the RGB-D facade's shapes: K1 on its world's first frame (640x480) at
    1000 features, K2 at 1000 x 1000, K3 on its 2048-slot landmark block.
 4. Tracking path: the fused mono tracking step with a 4096-slot local-map
@@ -31,6 +32,15 @@
    (torch.profiler) and no more host syncs. Then bench_multiseq's setup at
    2000 and 4000 features: aggregate and single-step FPS, efficiency,
    syncs, peak memory, busy share (recorded, no gate).
+   Then the stereo tracking step (``make_track_step(stereo=True)``) on
+   bench_stereo_step's world (tests/stereo_step_world.py: 12 pairs at
+   376x1240, the KITTI rig's 0.54 m baseline, 2000 features), one JSON line
+   per sub-phase (``run_stereo_step``): bench's run (stereo_tracked_fps,
+   stereo_kp_z_valid_frac, stereo_n_inliers, the depth funnel, syncs
+   against the mono step's, the stereo match's and K1's device ms), with
+   the local map, in chunks of 8 and batched over 4 worlds; gated against
+   the JAX package's CPU run of the world (SS_JAX) and on launches (a pair
+   is one batched K1 launch, B pairs one launch of 2B frames).
 5. Pose graphs at 256 nodes: bench_pose_graph's SE(3)
    problem and a drifted 256-node Sim(3) loop, cost checked to fall, timed
    per solve (the first solve pays torch.func's and the solver's set-up).
@@ -160,11 +170,13 @@
    as the last line. Any failure raises and exits nonzero.
 
 K5 has no caller in either package: only phase 3 launches it. The
-kernels' launch counts add up the tracking, loop, full-pipeline, facade,
-stereo facade and loop pipeline phases; the batched rows' count the batched
-VO phase's batched steps, the B = 2 row's the stereo phases' pairs, the
-RGB-D rows' the RGB-D phases' launches (each at least one), and the loop
-pipeline's K4 row the K4 launches of its runs.
+kernels' launch counts add up the tracking, stereo step, loop,
+full-pipeline, facade, stereo facade and loop pipeline phases; the batched
+rows' count the batched VO phase's batched steps, the B = 2 row's the
+stereo phases' and the stereo step's pairs, the B = 8 row's the batched
+stereo step's, the RGB-D rows' the RGB-D phases' launches (each at least
+one), and the loop pipeline's K4 row the K4 launches of its runs. The
+stereo step phases count their first timed repeat and the local-map run.
 """
 from __future__ import annotations
 
@@ -286,7 +298,7 @@ MS_B, MS_STEPS, MS_BATCHES, MS_REPS = 4, 30, 4, 3
 MS_FEATURES = (2000, 4000)
 MS_PROFILE_STEPS = 4
 MS_KERNEL_RATIO_MAX = 1.25  # CUDA kernels of a batched step over a single step's
-STEP_SPANS = ("detect", "match", "guided_match", "ransac_pnp", "fallback_gn")
+STEP_SPANS = ("detect", "stereo_match", "match", "guided_match", "ransac_pnp", "fallback_gn")
 # Loop pipeline: bench_loop_pipeline's world and deployment
 # (tests/loop_pipeline_world.py), loop closing on and off, and a system
 # resumed from the on pass's checkpoint after LP_CHECKPOINT. The JAX
@@ -311,6 +323,24 @@ STEP_SPANS = ("detect", "match", "guided_match", "ransac_pnp", "fallback_gn")
 LP_JAX = {"on_closures": 0, "on_ate_pct": 0.2828, "off_ate_pct": 0.3323, "async_ate_pct": 0.1946,
           "sparse_ate_pct": 0.3264}
 LP_CHECKPOINT, LP_DT, LP_ATE_PCT_FLOOR = 103, 0.1, 2.0
+# Stereo tracking step: bench_stereo_step's world and run
+# (tests/stereo_step_world.py). The JAX package's CPU run of it
+# (scripts/stereo_step_reference.py --impl jax): on pair 0, 709 of the 2000
+# slots depth-valid (stereo_kp_z_valid_frac 0.3545); at pair 1, 372
+# inliers and the translation below, 0.0368 m off ground truth. Gates: the
+# fraction within SS_FRAC_ATOL of JAX's, pair 1's inliers at least
+# SS_INLIER_SHARE of JAX's and its translation within SS_T_ATOL (the bound
+# of tests/test_torch_pipeline.py) of JAX's and of ground truth; a chunk's
+# poses equal the single steps' within SS_CHUNK_ATOL; the batched step at
+# B = 1 equals the single step in every output, the pose within
+# SS_B1_POSE_ATOL (its batched small products round otherwise).
+SS_JAX = {"kp_z_valid_frac": 0.3545, "n_inliers": 372,
+          "pair1_t": [-0.5367594957351685, 0.0008527803001925349, -0.0016069788252934813]}
+SS_FRAC_ATOL, SS_INLIER_SHARE, SS_T_ATOL, SS_CHUNK_ATOL, SS_B1_POSE_ATOL = 0.02, 0.9, 0.06, 1e-5, 1e-5
+# bench's 60 timed steps and 3 repeats; chunks of 8; 4 sequences. To keep the
+# phases under 90 s on a slow host, the local-map run and each chunk repeat take
+# SS_SHORT steps, and each batched repeat bench_multiseq's MS_STEPS.
+SS_STEPS, SS_REPS, SS_CHUNK, SS_B, SS_SHORT = 60, 3, 8, 4, 16
 
 
 def log(msg: str) -> None:
@@ -678,26 +708,36 @@ def check_kernels(torch, np, frame, K):
     return rows
 
 
+def batched_k1_args(torch, np, frames):
+    """The batched K1's arguments for ``frames`` (B frames, stacked as the
+    batched detect stacks them): (levels, blurred levels, keypoints per
+    level, moment weights) on the card."""
+    from visual_slam_tpu_torch.ops import orb, pyramid
+    from visual_slam_tpu_torch.ops.detector import detect_level, level_quotas
+
+    dev = torch.device("cuda")
+    imgs = torch.from_numpy(np.stack(frames)).to(dev)
+    w = torch.from_numpy(orb.MOMENT_W_NP).to(dev)
+    levels = [lvl.contiguous() for lvl in pyramid.build_pyramid(imgs, N_LEVELS, 1.2)]
+    yxs = [detect_level(lvl, k, 20.0, GRID, 16)[0] for lvl, k in zip(levels, level_quotas(N_FEATURES, N_LEVELS, 1.2))]
+    return levels, [pyramid.gaussian_blur(lvl) for lvl in levels], yxs, w
+
+
 def batched_k1_row(torch, np, frames, name="patches_and_moments_batched"):
     """The batched K1 on the four levels of ``frames`` (B frames, stacked as
     the batched detect stacks them: one launch for all frames and levels)
     against its plain version, at B = 1 against the one-frame kernel, then
     timed: its row of the kernels JSON."""
-    from visual_slam_tpu_torch.ops import orb, pyramid
-    from visual_slam_tpu_torch.ops.detector import detect_level, level_quotas
+    from visual_slam_tpu_torch.ops import orb
     from visual_slam_tpu_torch.ops.patch_kernels import (
         patches_and_moments_batched,
         patches_and_moments_batched_ref,
         patches_and_moments_levels,
     )
 
-    dev = torch.device("cuda")
     Bn = len(frames)
-    imgs = torch.from_numpy(np.stack(frames)).to(dev)
-    w = torch.from_numpy(orb.MOMENT_W_NP).to(dev)
-    levels = [lvl.contiguous() for lvl in pyramid.build_pyramid(imgs, N_LEVELS, 1.2)]
-    yxs = [detect_level(lvl, k, 20.0, GRID, 16)[0] for lvl, k in zip(levels, level_quotas(N_FEATURES, N_LEVELS, 1.2))]
-    args = (levels, [pyramid.gaussian_blur(lvl) for lvl in levels], yxs, w)
+    args = batched_k1_args(torch, np, frames)
+    levels, _, yxs, w = args
     mom, pat = patches_and_moments_batched(*args)
     mom_r, pat_r = patches_and_moments_batched_ref(*args)
     one = patches_and_moments_levels(*[[x[0] for x in a] for a in args[:3]], w)
@@ -1098,6 +1138,263 @@ def run_multiseq(torch, np, dev, render_mod) -> list[int]:
                    agg_fps_reps=fps["batched"], single_fps_reps=fps["single"], peak_mib=peak, profiled=costs)
         log(json.dumps(rep))
     return total
+
+
+def stereo_states(torch, np, step, pairs, K, dev, seed=0, local_map=False):
+    """bench_stereo_step's start on one world: frame 0's features (a single
+    detect of the left image), the step on pair 0 from a state around them,
+    its depths backprojected into frame 0's landmarks (20 m where a slot has
+    none). Returns (make_state(seed), out0, feats0); ``make_state`` gives
+    the state around those landmarks, with a 4096-slot arena holding them
+    when ``local_map``."""
+    import stereo_step_world as ssw
+
+    from visual_slam_tpu_torch import pipeline
+
+    feats0 = step.detect(pairs[0, 0])
+    st0 = pipeline.init_track_state(feats0, np.zeros((N_FEATURES, 3), np.float32), feats0.valid, np.eye(4),
+                                    seed=seed, device=dev, local_map_size=ARENA if local_map else 0)
+    _, out0 = step(st0, pairs[0])
+    z_ok = (out0.kp_z_valid & out0.features.valid).cpu().numpy()
+    lm, has = ssw.landmarks_from_depths(K, out0.features.xy.cpu().numpy(), out0.kp_z.cpu().numpy(), z_ok)
+    if local_map:
+        lm_pos = np.zeros((ARENA, 3), np.float32)
+        lm_desc = np.zeros((ARENA, 8), np.int32)
+        lm_valid = np.zeros(ARENA, bool)
+        lm_pos[:N_FEATURES], lm_desc[:N_FEATURES], lm_valid[:N_FEATURES] = lm, feats0.desc.cpu().numpy(), has
+
+    def make(seed: int = seed):
+        if not local_map:
+            return pipeline.init_track_state(feats0, lm, has, np.eye(4), seed=seed, device=dev)
+        s = pipeline.init_track_state(feats0, lm, has, np.eye(4), seed=seed, device=dev, local_map_size=ARENA)
+        return pipeline.set_local_map(s, lm_pos, lm_desc, lm_valid)
+
+    return make, out0, feats0
+
+
+def stepped_fps(step, make_state, frames, n_steps: int, n_seq: int = 1) -> float:
+    """bench_stereo_step's timing: ``n_steps`` steps cycled over ``frames``
+    from a new state, then one value fetch; frames per second over
+    ``n_seq`` sequences."""
+    s = make_state()
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        s, out = step(s, frames[i % len(frames)])
+    float(out.T_w2c.flatten()[0])
+    return n_seq * n_steps / (time.perf_counter() - t0)
+
+
+def run_stereo_step(torch, np, dev) -> dict:
+    """The stereo tracking step (``make_track_step(stereo=True)``) on
+    bench_stereo_step's world (tests/stereo_step_world.py), one JSON line
+    per sub-phase:
+    1. ``stereo_step``: bench's run. The step on pair 0 gives
+       stereo_kp_z_valid_frac and frame 0's landmarks; the step on pair 1
+       gives stereo_n_inliers and a pose; then SS_REPS repeats of SS_STEPS
+       steps cycled over pairs 1-11 ending in one value fetch give
+       stereo_tracked_fps (median, min), the launches counted over the
+       first. Also the depth funnel on pair 0 (tests/stereo_step_world.py),
+       host syncs a step against the mono step's on the same world
+       (``count_syncs``), kernels a step and the device busy share under
+       torch.profiler, the device ms of the stereo match stage (events, and
+       its busy ms and kernels under the profiler) and of K1 at B = 2 (this
+       pair's levels), and peak memory. Gates: pair 0's
+       fraction within SS_FRAC_ATOL of the JAX package's CPU run (SS_JAX),
+       pair 1's inliers at least SS_INLIER_SHARE of JAX's, its translation
+       within SS_T_ATOL of JAX's and of ground truth, the batched K1 and K2
+       once a step (none of the one-frame K1), no more host syncs than the
+       mono step.
+    2. ``stereo_step_local_map``: the same world with ``local_map=True`` and
+       a 4096-slot arena holding frame 0's landmarks, as CompiledSLAM will
+       call the step: SS_SHORT steps, K3 once a step besides K1 and K2, pair
+       1 within SS_T_ATOL of ground truth.
+    3. ``stereo_chunk``: ``make_track_chunk`` over pairs 1-8; its poses
+       equal those of 8 single steps from the same generator seed within
+       SS_CHUNK_ATOL; chunk FPS over SS_REPS repeats of SS_SHORT // 8
+       chunks.
+    4. ``stereo_batched``: ``make_batched_vo(stereo=True)`` over SS_B worlds
+       (seeds 5 + s, generator seed s), bench's run on each: aggregate FPS
+       over SS_REPS repeats of MS_STEPS steps, efficiency against SS_B x the single step's
+       FPS, launches a batched step (the batched K1 once, for 2 x SS_B
+       frames; K2 paired once; nothing one-sequence); at B = 1 the batched
+       step on pair 1 equals the single step in every output but the pose,
+       and that within SS_B1_POSE_ATOL (the batched solve's small products
+       round otherwise).
+    Returns the launches of the counted runs (the first timed repeat of 1,
+    the run of 2, the first of 4): the single steps' batched K1 at B = 2,
+    K2 and K3 ("k1_b2", "k2", "k3"), the batched step's K1 at B = 2 x SS_B
+    ("k1_b8"); and the 2 x SS_B frames of the batched step's pair 1
+    ("b8_frames", numpy), for the K1 row at that shape."""
+    import stereo_step_world as ssw
+
+    from visual_slam_tpu_torch import pipeline
+    from visual_slam_tpu_torch.ops import match_kernels as mk
+    from visual_slam_tpu_torch.ops.patch_kernels import patches_and_moments_batched, patches_and_moments_levels
+    from visual_slam_tpu_torch.parallel import make_batched_vo
+
+    t_phase = time.perf_counter()
+    counters = {"k1_batched": patches_and_moments_batched, "k1_levels": patches_and_moments_levels,
+                "k2": mk.hamming_top2, "k3": mk.guided_top2, "k2_paired": mk.hamming_top2_paired,
+                "k3_batched": mk.guided_top2_batched}
+
+    def reset():
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {name: fn.launches for name, fn in counters.items()}
+
+    pairs_np, K, Ts = ssw.bench_world()
+    pairs = torch.from_numpy(pairs_np).to(dev)
+    cycle = pairs[1:]
+    step = pipeline.make_track_step(K, device=dev, **ssw.step_kwargs())
+    mono = pipeline.make_track_step(K, device=dev, num_features=N_FEATURES, n_levels=N_LEVELS)
+    make_state, out0, feats0 = stereo_states(torch, np, step, pairs, K, dev)
+    z_ok = (out0.kp_z_valid & out0.features.valid).cpu().numpy()
+    frac = float(z_ok.mean())
+    fl, fr = step.detect_pair(pairs[0])
+    bf = ssw.BASELINE * float(K[0, 0])
+    funnel = ssw.depth_funnel(*[a.cpu().numpy() for f in (fl, fr) for a in (f.xy, f.desc, f.valid)], bf)
+    funnel_vs_step = int((funnel.pop("valid_slots") != z_ok).sum())
+
+    # 1. bench's run: pair 1, then the timed steps, the first counted.
+    _, out1 = step(make_state(), pairs[1])
+    T1 = out1.T_w2c.cpu().numpy()
+    n_inl1 = int(out1.n_inliers)
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    fps = [stepped_fps(step, make_state, cycle, SS_STEPS)]
+    launches = read()
+    fps += [stepped_fps(step, make_state, cycle, SS_STEPS) for _ in range(SS_REPS - 1)]
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    counted = dict(launches)
+    costs = step_costs(torch, {"stereo": cycling(step, make_state(), cycle),
+                               "mono": cycling(mono, make_state(), cycle[:, 0])}, MS_PROFILE_STEPS)
+    n_sync = {name: sum(c["syncs"].values()) for name, c in costs.items()}
+    fl1, fr1 = step.detect_pair(pairs[1])
+    match_ms, match_gapless = device_ms(lambda: step.stereo_depths(fl1, fr1), n=50)
+    match_prof = profile_calls(torch, lambda: step.stereo_depths(fl1, fr1), 20)
+    k1_args = batched_k1_args(torch, np, list(pairs_np[1]))
+    k1_ms, k1_gapless = device_ms(lambda: patches_and_moments_batched(*k1_args), n=50)
+    t_err = float(np.linalg.norm(T1[:3, 3] - Ts[1][:3, 3]))
+    t_vs_jax = float(np.linalg.norm(T1[:3, 3] - np.asarray(SS_JAX["pair1_t"])))
+    per_step = {k: v / SS_STEPS for k, v in launches.items()}
+    rep = dict(phase="stereo_step", world="bench_stereo_step", size=[H, W], features=N_FEATURES, steps=SS_STEPS,
+               stereo_tracked_fps_median=statistics.median(fps), stereo_tracked_fps_min=min(fps), fps_reps=fps,
+               stereo_kp_z_valid_frac=frac, stereo_n_inliers=n_inl1, jax_cpu=SS_JAX,
+               pair1_t=T1[:3, 3].tolist(), pair1_t_err_m=t_err, pair1_t_vs_jax_m=t_vs_jax,
+               funnel_pair0=funnel, funnel_vs_step_mismatches=funnel_vs_step,
+               syncs_per_step=n_sync, syncs_by_line_stereo=costs["stereo"]["syncs"],
+               launches_per_step=per_step, kernels_per_step={k: c["kernels_per_call"] for k, c in costs.items()},
+               busy_share_profiled={k: c["busy_share"] for k, c in costs.items()},
+               host_span_ms_stereo=costs["stereo"]["host_span_ms_per_call"],
+               stereo_match_device_ms=match_ms, stereo_match_gapless=match_gapless,
+               stereo_match_busy_ms_profiled=match_prof["busy_ms_per_call"],
+               stereo_match_kernels=match_prof["kernels_per_call"],
+               k1_b2_device_ms=k1_ms, k1_b2_gapless=k1_gapless, peak_mib=peak)
+    log(json.dumps(rep))
+    if funnel_vs_step:
+        raise AssertionError(f"stereo step: the funnel's depth-valid slots differ from the step's on {funnel_vs_step}")
+    if abs(frac - SS_JAX["kp_z_valid_frac"]) > SS_FRAC_ATOL:
+        raise AssertionError(f"stereo step: kp_z_valid_frac {frac} against JAX's {SS_JAX['kp_z_valid_frac']}")
+    if n_inl1 < SS_INLIER_SHARE * SS_JAX["n_inliers"]:
+        raise AssertionError(f"stereo step: {n_inl1} inliers at pair 1, under {SS_INLIER_SHARE} x JAX's "
+                             f"{SS_JAX['n_inliers']}")
+    if not np.isfinite(T1).all() or t_err > SS_T_ATOL or t_vs_jax > SS_T_ATOL:
+        raise AssertionError(f"stereo step: pair 1 translation {T1[:3, 3]} off ground truth by {t_err} m, off JAX's "
+                             f"by {t_vs_jax} m (bound {SS_T_ATOL})")
+    expected = {"k1_batched": SS_STEPS, "k1_levels": 0, "k2": SS_STEPS, "k3": 0, "k2_paired": 0, "k3_batched": 0}
+    if launches != expected:
+        raise AssertionError(f"stereo step launches {launches} != {expected}")
+    if n_sync["stereo"] > n_sync["mono"]:
+        raise AssertionError(f"stereo step: {costs['stereo']['syncs']} host syncs a step, more than the mono step's "
+                             f"{costs['mono']['syncs']}")
+
+    # 2. The local map: the arena holds frame 0's landmarks.
+    step_lm = pipeline.make_track_step(K, device=dev, local_map=True, width=W, height=H, **ssw.step_kwargs())
+    make_lm, _, _ = stereo_states(torch, np, step_lm, pairs, K, dev, local_map=True)
+    _, o1 = step_lm(make_lm(), pairs[1])
+    T1_lm = o1.T_w2c.cpu().numpy()
+    reset()
+    fps_lm = stepped_fps(step_lm, make_lm, cycle, SS_SHORT)
+    launches = read()
+    for k in ("k1_batched", "k2", "k3"):
+        counted[k] += launches[k]
+    t_err_lm = float(np.linalg.norm(T1_lm[:3, 3] - Ts[1][:3, 3]))
+    rep = dict(phase="stereo_step_local_map", arena=ARENA, steps=SS_SHORT, fps=fps_lm,
+               pair1_n_inliers=int(o1.n_inliers), pair1_guided=int(o1.guided_valid.sum()), pair1_t_err_m=t_err_lm,
+               launches_per_step={k: v / SS_SHORT for k, v in launches.items()})
+    log(json.dumps(rep))
+    expected = {"k1_batched": SS_SHORT, "k1_levels": 0, "k2": SS_SHORT, "k3": SS_SHORT, "k2_paired": 0, "k3_batched": 0}
+    if launches != expected:
+        raise AssertionError(f"stereo step with the local map: launches {launches} != {expected}")
+    if not np.isfinite(T1_lm).all() or t_err_lm > SS_T_ATOL or not bool(o1.guided_valid.any()):
+        raise AssertionError(f"stereo step with the local map: pair 1 off ground truth by {t_err_lm} m, or no guided "
+                             "pair")
+
+    # 3. Chunks of 8 pairs.
+    chunk = pipeline.make_track_chunk(step)
+    imgs = pairs[1:1 + SS_CHUNK]
+    _, outs = chunk(make_state(seed=7), imgs)
+    s, T_single = make_state(seed=7), []
+    for img in imgs:
+        s, o = step(s, img)
+        T_single.append(o.T_w2c)
+    d_chunk = float((outs.T_w2c - torch.stack(T_single)).abs().max())
+    n_chunks = SS_SHORT // SS_CHUNK
+    chunk_fps = []
+    for _ in range(SS_REPS):
+        s = make_state()
+        t0 = time.perf_counter()
+        for _ in range(n_chunks):
+            s, outs = chunk(s, imgs)
+        float(outs.T_w2c[-1, 0, 0])
+        chunk_fps.append(n_chunks * SS_CHUNK / (time.perf_counter() - t0))
+    rep = dict(phase="stereo_chunk", chunk=SS_CHUNK, chunks=n_chunks, chunk_fps_median=statistics.median(chunk_fps),
+               chunk_fps_min=min(chunk_fps), chunk_fps_reps=chunk_fps, chunk_vs_single_max_abs=d_chunk)
+    log(json.dumps(rep))
+    if not d_chunk <= SS_CHUNK_ATOL:
+        raise AssertionError(f"stereo chunk: poses off the single steps' by {d_chunk} (bound {SS_CHUNK_ATOL})")
+
+    # 4. Batched: SS_B worlds, bench's run on each.
+    worlds_np = [pairs_np] + [ssw.bench_world(seed=ssw.SEED + b)[0] for b in range(1, SS_B)]
+    worlds = [pairs] + [torch.from_numpy(w).to(dev) for w in worlds_np[1:]]
+    makers = [make_state] + [stereo_states(torch, np, step, w, K, dev, seed=b)[0] for b, w in enumerate(worlds) if b]
+    bstep = make_batched_vo(K, device=dev, **ssw.step_kwargs())
+    bcycle = torch.stack([w[1:] for w in worlds], 1)  # (pairs, B, 2, H, W)
+
+    def stacked():
+        return pipeline.stack_track_states([make(seed=b) for b, make in enumerate(makers)])
+
+    # At B = 1 against the single step, pair 1 from the same state and seed.
+    _, ob = bstep(pipeline.stack_track_states([make_state(seed=3)]), pairs[1:2])
+    _, o = step(make_state(seed=3), pairs[1])
+    ob = pipeline.split_track_outputs(ob)[0]
+    b1_diff = [name for name, a, b in zip(o._fields, ob, o) if name != "T_w2c" and not (
+        all(torch.equal(x, y) for x, y in zip(a, b)) if isinstance(b, tuple) else torch.equal(a, b))]
+    b1_pose = float((ob.T_w2c - o.T_w2c).abs().max())
+    bstep(stacked(), bcycle[0])  # warm-up
+    reset()
+    agg = [stepped_fps(bstep, stacked, bcycle, MS_STEPS, SS_B)]
+    launches = read()
+    agg += [stepped_fps(bstep, stacked, bcycle, MS_STEPS, SS_B) for _ in range(SS_REPS - 1)]
+    single = statistics.median(fps)
+    rep = dict(phase="stereo_batched", B=SS_B, steps=MS_STEPS, agg_fps_median=statistics.median(agg),
+               agg_fps_min=min(agg), agg_fps_reps=agg, single_fps_median=single,
+               efficiency=statistics.median(agg) / (SS_B * single),
+               launches_per_step={k: v / MS_STEPS for k, v in launches.items()},
+               b1_fields_differing=b1_diff, b1_pose_max_abs=b1_pose)
+    log(json.dumps(rep))
+    expected = {"k1_batched": MS_STEPS, "k1_levels": 0, "k2": 0, "k3": 0, "k2_paired": MS_STEPS, "k3_batched": 0}
+    if launches != expected:
+        raise AssertionError(f"stereo batched step launches {launches} != {expected}")
+    if b1_diff or not b1_pose <= SS_B1_POSE_ATOL:
+        raise AssertionError(f"stereo batched step at B = 1: {b1_diff} differ from the single step, pose by {b1_pose}")
+    log(f"stereo step phases: {time.perf_counter() - t_phase:.1f} s")
+    return {"k1_b2": counted["k1_batched"], "k2": counted["k2"], "k3": counted["k3"], "k1_b8": launches["k1_batched"],
+            "b8_frames": [f for w in worlds_np for f in w[1]]}
 
 
 def run_loop_path(torch, np, step, dev, counters):
@@ -2601,6 +2898,11 @@ def main() -> int:
         patches_and_moments_levels,
     )
 
+    t_start = time.perf_counter()
+
+    def elapsed(after: str) -> None:
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s after {after}")
+
     t0 = time.perf_counter()
     _build.build(force=True)
     _build.lib()
@@ -2710,11 +3012,20 @@ def main() -> int:
 
     # The batched VO step: MS_B sequences in one step, counted on its own.
     multiseq_launches = run_multiseq(torch, np, dev, render_mod)
+    elapsed("the kernel checks, the tracking path and batched VO")
+    # The stereo step on bench_stereo_step's world, counted on its own; then
+    # the batched K1 at the batched stereo step's B = 2 x SS_B.
+    ss = run_stereo_step(torch, np, dev)
+    k1_b8_row = batched_k1_row(torch, np, ss["b8_frames"],
+                               f"patches_and_moments_batched, B = {2 * SS_B} ({SS_B} stereo pairs)")
+    k1_b8_row["launches"] = ss["k1_b8"]
+    elapsed("the stereo step")
 
     # The pose graphs (whose first solve pays the one-time set-up of
     # torch.func and the solver), then the loop path, counted on its own.
     run_pose_graphs(torch, np, dev)
     loop_launches = run_loop_path(torch, np, step, dev, counters)
+    elapsed("the pose graphs and the loop path")
     fp_launches, _ = run_full_pipeline(torch, np, dev, counters)
     # The async heavy boundary on the same deployment: measured, then again
     # with the host syncs counted over the whole run.
@@ -2722,28 +3033,36 @@ def main() -> int:
         more, _ = run_full_pipeline(torch, np, dev, counters, async_boundary=True, sync_check=check)
         fp_launches = [a + b for a, b in zip(fp_launches, more)]
     run_ba_layouts(torch, np, dev)
+    elapsed("the full pipeline's three runs and the BA layouts")
     facade_launches = run_facade_phases(torch, np, dev, counters)
+    elapsed("the facade")
     depth = run_depth_facade_phases(torch, np, dev, (LaunchSum(patches_and_moments_levels,
                                                                patches_and_moments_batched), *counters[1:]))
+    elapsed("the stereo and RGB-D facade")
     stereo, rgbd = depth["stereo"], depth["rgbd"]
     stereo_launches = [stereo["k1"], stereo["k2"], stereo["k3"], stereo["k4"], 0]
     lp_launches, lp_k4, lp_k4_args = run_loop_pipeline(torch, np, dev, counters)
-    parts = list(zip(launches, loop_launches, fp_launches, facade_launches, stereo_launches, lp_launches))
+    elapsed("the loop pipeline")
+    ss_launches = [0, ss["k2"], ss["k3"], 0, 0]
+    parts = list(zip(launches, ss_launches, loop_launches, fp_launches, facade_launches, stereo_launches,
+                     lp_launches))
     for row, part in zip(rows, parts):
         row["launches"] = sum(part)
     for row, n in zip(rows[len(parts):], multiseq_launches):
         row["launches"] = n
-    rows[len(parts) + len(multiseq_launches)]["launches"] = stereo["k1_batched"]  # the stereo pairs' K1
+    # The stereo pairs' K1 at B = 2: the stereo facade's and the stereo step's.
+    rows[len(parts) + len(multiseq_launches)]["launches"] = stereo["k1_batched"] + ss["k1_b2"]
     for row, key in zip(rgbd_rows, ("k1", "k2", "k3")):
         row["launches"] = rgbd[key]
         if not row["launches"]:
             raise AssertionError(f"{row['name']}: no launch in the RGB-D phases")
     if rgbd["k1_batched"] or rgbd["k4"]:
         raise AssertionError(f"RGB-D phases launched the batched K1 {rgbd['k1_batched']} and K4 {rgbd['k4']} times")
-    log("launches per kernel (tracking, loop path, full pipeline with its two async runs, facade phases, stereo "
-        "facade phases, loop pipeline phases with the async and sparse passes): "
+    rows.append(k1_b8_row)
+    log("launches per kernel (tracking, stereo step, loop path, full pipeline with its two async runs, facade "
+        "phases, stereo facade phases, loop pipeline phases with the async and sparse passes): "
         f"{[(r['name'], *part) for r, part in zip(rows, parts)]}; K5 has no caller on any path; "
-        f"batched (multiseq phase; stereo phases) and RGB-D phases: "
+        f"batched (multiseq phase; stereo phases and the stereo step), RGB-D phases and the batched stereo step: "
         f"{[(r['name'], r['launches']) for r in rows[len(parts):]]}")
     # K4 at the ring's own shortlist shapes: the on pass's fullest detect.
     rows.append(k4_row(torch, lp_k4_args, "hamming_top2_batched, loop pipeline shortlist"))

@@ -130,5 +130,6 @@ def test_init_track_state_and_stereo_refused(setup):
     s = tp.init_track_state(feats, np.zeros((NF, 3)), np.zeros(NF, bool), np.eye(4), local_map_size=M)
     assert s.lm_desc.shape == (M, 8) and s.lm_desc.dtype == torch.int32 and not bool(s.lm_valid.any())
     assert torch.equal(s.T_rel, torch.eye(4))
-    with pytest.raises(NotImplementedError):
+    # The stereo step is ported; as in the JAX package it needs a positive baseline.
+    with pytest.raises(ValueError, match="baseline"):
         tp.make_track_step(K, stereo=True, device="cpu")

@@ -53,7 +53,9 @@ class RGBDVO(SLAM):
 class CompiledVO:
     """The fused device-resident frame-to-frame tracker (``pipeline.py``)
     with a minimal host API: feed frames, read poses. Keyframe and landmark
-    management is the host's, through ``set_reference``."""
+    management is the host's, through ``set_reference``. ``track_params``
+    go to the step: with ``stereo=True`` and ``baseline``, ``track`` takes
+    a (2, H, W) left/right pair."""
 
     def __init__(self, K: np.ndarray, num_features: int = 2000, device=None, **track_params):
         from ..pipeline import make_track_step
@@ -97,5 +99,6 @@ class BatchedVO:
 
     def track(self, states, imgs):
         """``(states, imgs (B, H, W)) -> (states, outs)`` with a batched state
-        (``pipeline.stack_track_states``) on the step's device."""
+        (``pipeline.stack_track_states``) on the step's device; (B, 2, H, W)
+        pairs with ``stereo=True``."""
         return self.step(states, torch.as_tensor(imgs, dtype=torch.float32, device=states.T_w2c.device))

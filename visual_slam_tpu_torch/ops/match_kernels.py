@@ -24,22 +24,23 @@ _TILE = 64  # query rows and train columns of a block of csrc/hamming_top2.cu
 
 
 def hamming_distances(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.Tensor:
-    """(K1, 8) x (K2, 8) int32 words -> (K1, K2) int64 Hamming distances,
-    as the JAX package's XLA path computes them: |a| + |b| - 2 a.b over the
-    unpacked 0/1 bits. Every partial sum is an integer below 2^24, so the
-    f32 product is exact in any summation order (TF32 is off)."""
+    """(..., K1, 8) x (..., K2, 8) int32 words -> (..., K1, K2) int64
+    Hamming distances, as the JAX package's XLA path computes them: |a| +
+    |b| - 2 a.b over the unpacked 0/1 bits. Every partial sum is an integer
+    below 2^24, so the f32 product is exact in any summation order (TF32
+    is off), with or without leading batch dimensions."""
     b1 = unpack_bits(desc1)
     b2 = unpack_bits(desc2)
-    d = b1.sum(-1)[:, None] + b2.sum(-1)[None, :] - 2.0 * (b1 @ b2.T)
+    d = b1.sum(-1)[..., :, None] + b2.sum(-1)[..., None, :] - 2.0 * (b1 @ b2.mT)
     return d.to(torch.int64)
 
 
 def hamming_distance_matrix(
     desc1: torch.Tensor, desc2: torch.Tensor, valid1: torch.Tensor, valid2: torch.Tensor
 ) -> torch.Tensor:
-    """(K1, K2) float32 Hamming distances; invalid rows/columns get BIG."""
+    """(..., K1, K2) float32 Hamming distances; invalid rows/columns get BIG."""
     d = hamming_distances(desc1, desc2).to(torch.float32)
-    return torch.where(valid1[:, None] & valid2[None, :], d, BIG)
+    return torch.where(valid1[..., :, None] & valid2[..., None, :], d, BIG)
 
 
 def top2(dist: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -8,7 +8,9 @@ neighbour is the best epipolar-consistent candidate. The JAX package
 computes it with XLA (its ``distance_matrix`` and ``min2``), not a Pallas
 kernel: here it is ``match_kernels.hamming_distance_matrix`` and ``top2``.
 Distances are exact integers, so ``right_idx`` and ``valid`` agree with the
-JAX package exactly, ties to the lower index. ``sample_depth_at`` is the
+JAX package exactly, ties to the lower index. With a leading batch axis
+(the batched stereo step's B pairs) every pair is matched on its own, as
+it would be alone. ``sample_depth_at`` is the
 RGB-D nearest-pixel lookup. ``measure_keypoint_depths`` is the one rule
 for which keypoints have a depth, shared by tracking, the fused frame step
 and the keyframe handlers. ``backproject_depths`` and its host twin
@@ -19,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .batch import take_rows
 from .match_kernels import BIG, hamming_distance_matrix, top2
 
 _EPS = 1e-9
@@ -41,10 +44,12 @@ def stereo_feature_depths(
     """Rectified-stereo depth per left keypoint slot. ``xy_*`` (K, 2) pixels,
     ``desc_*`` (K, 8) int32 words, ``bf`` the baseline times the focal
     length (pixels x metres). Returns dict(z (K_l,) metres, disparity
-    (K_l,), right_idx (K_l,) int64, valid (K_l,) bool)."""
+    (K_l,), right_idx (K_l,) int64, valid (K_l,) bool). With a leading B on
+    every input, B pairs at once and every output with the leading B."""
+    nb = xy_l.dim() - 2
     d = hamming_distance_matrix(desc_l, desc_r, valid_l, valid_r)
-    dv = torch.abs(xy_l[:, 1:2] - xy_r[None, :, 1])  # (K_l, K_r) row gap
-    disp = xy_l[:, 0:1] - xy_r[None, :, 0]
+    dv = torch.abs(xy_l[..., :, 1:2] - xy_r[..., None, :, 1])  # (K_l, K_r) row gap
+    disp = xy_l[..., :, 0:1] - xy_r[..., None, :, 0]
     gate = (dv <= row_tolerance) & (disp > min_disparity) & (disp < max_disparity)
     d = torch.where(gate, d, BIG)
     best, second, ri = top2(d)
@@ -52,9 +57,9 @@ def stereo_feature_depths(
     if ratio > 0:
         ok = ok & (best < ratio * second)
     if cross_check:
-        rev = torch.argmin(d, dim=0)
-        ok = ok & (rev[ri] == torch.arange(d.shape[0], device=d.device))
-    dsp = torch.clamp(xy_l[:, 0] - xy_r[ri, 0], min=_EPS)
+        rev = torch.argmin(d, dim=-2)
+        ok = ok & (take_rows(rev, ri, nb) == torch.arange(d.shape[-2], device=d.device))
+    dsp = torch.clamp(xy_l[..., 0] - take_rows(xy_r[..., 0], ri, nb), min=_EPS)
     return {"z": bf / dsp, "disparity": dsp, "right_idx": ri, "valid": ok}
 
 

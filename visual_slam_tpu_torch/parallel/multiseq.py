@@ -32,12 +32,15 @@ def _mesh_device(mesh: Mesh, axis: str) -> torch.device:
 def batched_track_step(track_step: TrackStep):
     """``(states, imgs (B, H, W)) -> (states, outs)`` over a batched state
     (``pipeline.stack_track_states``): the step with every leaf and output
-    on a leading B."""
+    on a leading B. A stereo step takes (B, 2, H, W) pairs and detects all
+    2B frames in one K1 launch."""
+    frame_dims = 4 if track_step.stereo else 3
+    shape = "(B, 2, H, W) pairs" if track_step.stereo else "(B, H, W) frames"
 
     def step(states: TrackState, imgs: torch.Tensor) -> tuple[TrackState, TrackOutput]:
-        if imgs.dim() != 3 or len(states.gen) != imgs.shape[0]:
-            raise ValueError(f"a batched step takes (B, H, W) frames and B generators; got frames "
-                             f"{tuple(imgs.shape)} and {len(states.gen)} generators")
+        if imgs.dim() != frame_dims or len(states.gen) != imgs.shape[0]:
+            raise ValueError(f"a batched step takes {shape} and B generators; got {tuple(imgs.shape)} and "
+                             f"{len(states.gen)} generators")
         return track_step(states, imgs)
 
     return step

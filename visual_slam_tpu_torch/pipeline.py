@@ -19,11 +19,16 @@ chunk on the device (inheriting and triangulating the new reference
 block), and ``make_compact_chunk`` gathers what the host needs at the
 chunk boundary into one small structure.
 
+``make_track_step(stereo=True)`` builds the stereo step: it takes a
+(2, H, W) left/right pair (or (B, 2, H, W) pairs of B sequences), detects
+both cameras as one batch (one K1 launch), measures each left keypoint's
+depth with the row-gated matcher (``ops.stereo``) and solves the
+depth-aware PnP. Stereo in-chunk promotion is not ported yet:
+``make_track_chunk_promote(stereo=True)`` raises (ROADMAP M9b-2).
+
 ``make_frame_step`` builds the host facade's one-call frame step, for
 monocular, stereo (a (2, H, W) pair detected as one batch) and RGB-D
-frames. The stereo ``TrackStep`` of ``CompiledSLAM`` is not ported yet:
-``make_track_step(stereo=True)`` and ``make_track_chunk_promote(stereo=True)``
-raise (ROADMAP M9b).
+frames.
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ from .ops.lie import make_T, rotation_angle, se3_inverse
 from .ops.matching import match_descriptors
 from .ops.pnp import _reproj_err2, ransac_pnp, refine_pose_gn
 from .ops.projection import normalize_points
-from .ops.stereo import measure_keypoint_depths
+from .ops.stereo import measure_keypoint_depths, stereo_feature_depths
 from .ops.triangulation import triangulate_gated
 from .utils.device import default_device
 from .utils.tree import to_device, tree_map
@@ -85,7 +90,13 @@ class TrackStep(nn.Module):
     Buffers: the intrinsics ``K`` and ``Kinv``, the (961, 15360) rotated-BRIEF
     ``sampling`` matrix, the (961, 2) ``moment_w`` weights and the inlier
     threshold ``thresh`` in normalized units, all on ``device`` (the card
-    unless the caller passes ``device="cpu"``)."""
+    unless the caller passes ``device="cpu"``).
+
+    ``stereo``: frames are rectified left/right pairs of a rig with
+    ``baseline`` metres; a left keypoint has a depth where the row-gated
+    match (rows within ``stereo_row_tolerance`` px, disparities below
+    ``baseline * fx / min_depth``) passes and gives z > ``min_depth``, the
+    JAX step's gate, with no upper bound."""
 
     def __init__(
         self,
@@ -103,9 +114,15 @@ class TrackStep(nn.Module):
         height: float | None = None,
         guided_radius_px: float = 25.0,
         guided_ratio: float = 0.8,
+        stereo: bool = False,
+        baseline: float = 0.0,
+        stereo_row_tolerance: float = 2.0,
+        min_depth: float = 0.1,
         device=None,
     ):
         super().__init__()
+        if stereo and baseline <= 0:
+            raise ValueError("stereo=True requires a positive baseline")
         K32 = torch.as_tensor(np.asarray(K, np.float32))
         self.register_buffer("K", K32)
         self.register_buffer("Kinv", torch.linalg.inv(K32))
@@ -124,6 +141,11 @@ class TrackStep(nn.Module):
         self.height = float(height) if height is not None else float(2.0 * K32[1, 2])
         self.guided_radius_px = guided_radius_px
         self.guided_ratio = guided_ratio
+        self.stereo = stereo
+        self.baseline = baseline
+        self.bf = baseline * float(K32[0, 0])
+        self.stereo_row_tolerance = stereo_row_tolerance
+        self.min_depth = min_depth
         self.to(default_device(device))
 
     def detect(self, img: torch.Tensor) -> Features:
@@ -156,14 +178,41 @@ class TrackStep(nn.Module):
         T = make_T(torch.where(use_fallback[..., None], R_f, res["R"]), torch.where(use_fallback, t_f, res["t"]))
         return T, torch.where(use_fallback, inl_f, res["inliers"])
 
+    def detect_pair(self, img: torch.Tensor) -> tuple[Features, Features]:
+        """Left and right features of a (*batch, 2, H, W) stereo input, both
+        cameras of every pair detected as one batch (one K1 launch)."""
+        lead = img.shape[:-2]
+        both = self.detect(img.reshape(-1, *img.shape[-2:]))
+        both = Features(*[a.reshape(*lead, *a.shape[1:]) for a in both])
+        # contiguous: a camera of B pairs is a strided view, and the kernels take dense rows
+        return tuple(Features(*[a.select(len(lead) - 1, c).contiguous() for a in both]) for c in (0, 1))
+
+    def stereo_depths(self, feats: Features, feats_r: Features) -> tuple[torch.Tensor, torch.Tensor]:
+        """(kp_z, kp_z_valid) per left keypoint slot, the JAX step's rule."""
+        sd = stereo_feature_depths(feats.xy, feats.desc, feats.valid, feats_r.xy, feats_r.desc, feats_r.valid,
+                                   self.bf, row_tolerance=self.stereo_row_tolerance,
+                                   max_disparity=self.bf / self.min_depth)
+        return sd["z"], sd["valid"] & (sd["z"] > self.min_depth)
+
     def forward(self, state: TrackState, img: torch.Tensor) -> tuple[TrackState, TrackOutput]:
         """One frame (H, W), or one frame of each of B sequences (B, H, W)
-        against a batched state."""
-        nb = img.dim() - 2  # leading batch dimensions: 0, or 1 for B sequences
+        against a batched state; a stereo step takes (2, H, W) pairs, or
+        (B, 2, H, W)."""
+        nb = img.dim() - (3 if self.stereo else 2)  # leading batch dimensions: 0, or 1 for B sequences
         # record_function spans name the stages in a torch.profiler trace
         # (about a microsecond each when no profiler runs).
-        with record_function("detect"):
-            feats = self.detect(img)
+        if self.stereo:
+            with record_function("detect"):
+                feats, feats_r = self.detect_pair(img)
+            with record_function("stereo_match"):
+                kp_z, kp_z_valid = self.stereo_depths(feats, feats_r)
+            depth = (kp_z, kp_z_valid, self.baseline)
+        else:
+            with record_function("detect"):
+                feats = self.detect(img)
+            kp_z = torch.zeros(feats.valid.shape, dtype=torch.float32, device=img.device)
+            kp_z_valid = torch.zeros(feats.valid.shape, dtype=torch.bool, device=img.device)
+            depth = None
         with record_function("match"):
             ref = state.ref_feats
             match = match_descriptors(
@@ -196,7 +245,7 @@ class TrackStep(nn.Module):
         else:
             guided_idx = torch.zeros(feats.valid.shape, dtype=torch.int64, device=img.device)
             guided_valid = torch.zeros(feats.valid.shape, dtype=torch.bool, device=img.device)
-        T, inliers = self.solve_pose(pts3d, xy_norm, pair_valid, T_pred, state.gen)
+        T, inliers = self.solve_pose(pts3d, xy_norm, pair_valid, T_pred, state.gen, depth=depth)
         n_inl = inliers.sum(-1)
         ok = (n_inl >= 6)[..., None, None]
         T_new = torch.where(ok, T, T_pred)
@@ -211,16 +260,14 @@ class TrackStep(nn.Module):
             pnp_inliers=inliers,
             guided_idx=guided_idx,
             guided_valid=guided_valid,
-            kp_z=torch.zeros(feats.valid.shape, dtype=torch.float32, device=img.device),
-            kp_z_valid=torch.zeros(feats.valid.shape, dtype=torch.bool, device=img.device),
+            kp_z=kp_z,
+            kp_z_valid=kp_z_valid,
         )
         return state._replace(T_w2c=T_new, T_rel=T_rel), out
 
 
-def make_track_step(K, stereo: bool = False, **kwargs) -> TrackStep:
+def make_track_step(K, **kwargs) -> TrackStep:
     """Build the tracking step; keyword arguments as ``TrackStep``."""
-    if stereo:
-        raise NotImplementedError("the stereo tracking step is not ported yet: ROADMAP M9b")
     return TrackStep(K, **kwargs)
 
 
@@ -330,7 +377,7 @@ def split_track_outputs(out: TrackOutput) -> list[TrackOutput]:
 
 def make_track_chunk(track_step: TrackStep):
     """Multi-frame tracking: ``chunk(state, imgs (C, H, W)) -> (state, outs)``
-    runs the step over the chunk in order, with every ``TrackOutput`` leaf
+    (a stereo step's imgs (C, 2, H, W)) runs the step over the chunk in order, with every ``TrackOutput`` leaf
     stacked along a leading C axis."""
 
     def chunk(state: TrackState, imgs: torch.Tensor) -> tuple[TrackState, TrackOutput]:
@@ -459,7 +506,7 @@ class TrackChunkPromote:
 def make_track_chunk_promote(track_step: TrackStep, K, stereo: bool = False, **kwargs) -> TrackChunkPromote:
     """Build the self-promoting chunk; keyword arguments as ``TrackChunkPromote``."""
     if stereo:
-        raise NotImplementedError("stereo in-chunk promotion is not ported yet: ROADMAP M9b")
+        raise NotImplementedError("stereo in-chunk promotion is not ported yet: ROADMAP M9b-2")
     return TrackChunkPromote(track_step, K, **kwargs)
 
 
