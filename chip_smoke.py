@@ -80,6 +80,22 @@
    shapes (BA_SHAPES; its problem from tests/ba_world.py): median wall of
    BA_REPS synchronised solves, device ms, host syncs a solve (must be 0),
    both costs (within BA_COST_RTOL).
+   Then the stereo pipeline (``run_stereo_pipeline``): bench_stereo_pipeline's
+   deployment through stereo ``CompiledSLAM`` (tests/stereo_pipeline_world.py:
+   48 pairs of ``bench.synth_kitti_frames(seed=3, baseline=0.54, step=0.6,
+   n_sprites=1500)`` at 376x1240, 2000 features, self-promoting chunks of 8
+   minting landmarks from the step's depths, a heavy boundary every second
+   promotion, f16 upload, a BA of at most 4096 landmarks), uncut, with the
+   bench's bootstrap, warm-up and timed window. Prints stereo_pipeline_fps,
+   stereo_pipeline_ate_pct_of_path_metric (no scale alignment), keyframes,
+   landmarks, the bootstrap pair, LOST pairs, device-minted slots per
+   promotion, double mints, BA solves over the landmark cap and the largest
+   map, host syncs per chunk (against the mono full pipeline's), K1 / K2 / K3
+   launches per pair and peak memory. Fails on a bootstrap on another pair
+   than the JAX package's CPU run (SP_JAX), a LOST pair, a metric ATE above
+   max(2 x JAX's, SP_ATE_PCT_FLOOR) % of the path, no device-minted slot, or
+   launches other than one batched K1 a pair (the one-frame K1 never) and
+   the run's steps and matches for K2 and K3.
 8. Host SLAM facade (``SLAM``, tests/facade_world.py's worlds), one JSON
    line per phase:
    a. deployment: ``bench.synth_kitti_frames(64, seed=3, step=0.6,
@@ -171,9 +187,10 @@
 
 K5 has no caller in either package: only phase 3 launches it. The
 kernels' launch counts add up the tracking, stereo step, loop,
-full-pipeline, facade, stereo facade and loop pipeline phases; the batched
-rows' count the batched VO phase's batched steps, the B = 2 row's the
-stereo phases' and the stereo step's pairs, the B = 8 row's the batched
+full-pipeline, stereo pipeline, facade, stereo facade and loop pipeline
+phases; the batched rows' count the batched VO phase's batched steps, the
+B = 2 row's the stereo facade phases', the stereo step's and the stereo
+pipeline's pairs, the B = 8 row's the batched
 stereo step's, the RGB-D rows' the RGB-D phases' launches (each at least
 one), and the loop pipeline's K4 row the K4 launches of its runs. The
 stereo step phases count their first timed repeat and the local-map run.
@@ -341,6 +358,22 @@ SS_FRAC_ATOL, SS_INLIER_SHARE, SS_T_ATOL, SS_CHUNK_ATOL, SS_B1_POSE_ATOL = 0.02,
 # phases under 90 s on a slow host, the local-map run and each chunk repeat take
 # SS_SHORT steps, and each batched repeat bench_multiseq's MS_STEPS.
 SS_STEPS, SS_REPS, SS_CHUNK, SS_B, SS_SHORT = 60, 3, 8, 4, 16
+# Stereo pipeline: bench_stereo_pipeline's world, deployment and run
+# (tests/stereo_pipeline_world.py). The JAX package's CPU run of it
+# (scripts/stereo_pipeline_reference.py --impl jax): bootstrap on pair 0,
+# no LOST pair, metric ATE (no scale alignment) 0.2006 m = 0.836 % of the
+# 24.0 m path, 11 keyframes, 6399 landmarks, 10 device promotions minting
+# 553-649 slots each, no double mint, 2 BA solves over the 4096-landmark cap
+# (5197 and 6399 landmarks handed in). Gates: the bootstrap on JAX's pair, no
+# LOST pair, ATE at most max(2 x JAX's, SP_ATE_PCT_FLOOR) % of the path, at
+# least one device-minted slot, K1 once a pair (the batched launch; the
+# one-frame K1 never), K2 and K3 as the run's steps and matches. The port
+# gives the bootstrap's landmarks descriptors, where JAX leaves them without
+# (ROADMAP F6): JAX's own runs of this world scaled by 1 + eps, eps a few
+# 1e-6, end at 1.1-2.0 %, one of three reseeded ones LOST.
+SP_JAX = {"bootstrap_frame": 0, "ate_pct": 0.8357}
+SP_ATE_PCT_FLOOR = 2.0
+MONO_FP_SYNCS_PER_CHUNK = 66  # the mono full pipeline's, PERF.md section 5
 
 
 def log(msg: str) -> None:
@@ -1660,6 +1693,40 @@ def heavy_summary(c) -> dict:
                 side_stream=all(c["side_stream"]) if c["side_stream"] else None)
 
 
+def boundary_stages(slam, cs_mod):
+    """Host ms by chunk-boundary stage of ``slam`` while ``timing["on"]``:
+    launching the chunk's steps, the compaction, the fetch (the wait for the
+    device), adoption, the landmark budget, the heavy BA, re-installing the
+    state. Returns (stage_ms, timing, undo); ``undo`` restores the module's
+    fetch."""
+    stage_ms = collections.Counter()
+    timing = {"on": False}
+
+    def stage(name, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if timing["on"]:
+                    stage_ms[name] += (time.perf_counter() - t) * 1e3
+        return run
+
+    slam._chunk = stage("dispatch", slam._chunk)
+    slam._compact_fn = stage("compact", slam._compact_fn)
+    slam._adopt_device_keyframe = stage("adopt", slam._adopt_device_keyframe)
+    slam._enforce_budget = stage("budget", slam._enforce_budget)
+    slam._boundary_heavy = stage("heavy BA", slam._boundary_heavy)
+    slam._install_reference = stage("install", slam._install_reference)
+    fetch0 = cs_mod.to_host
+    cs_mod.to_host = stage("fetch", fetch0)
+
+    def undo():
+        cs_mod.to_host = fetch0
+
+    return stage_ms, timing, undo
+
+
 def run_full_pipeline(torch, np, dev, counters, async_boundary=False, sync_check=False):
     """The deployment bench.bench_full_pipeline times, through the port's
     entry points: CompiledSLAM(camera, config).track() per frame, flush(),
@@ -1746,30 +1813,7 @@ def run_full_pipeline(torch, np, dev, counters, async_boundary=False, sync_check
     slam._boundary_heavy, slam._brute_recover, slam._run_chunk = boundary_heavy, brute, run_chunk
     opt.solve_start, opt.solve_finish = solve_start, solve_finish
 
-    # Host ms by boundary stage, over the timed window: launching the
-    # chunk's steps, the compaction, the fetch (the wait for the device),
-    # adoption, the landmark budget, the heavy BA, re-installing the state.
-    stage_ms = collections.Counter()
-    timing = {"on": False}
-
-    def stage(name, fn):
-        def run(*a, **kw):
-            t = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                if timing["on"]:
-                    stage_ms[name] += (time.perf_counter() - t) * 1e3
-        return run
-
-    slam._chunk = stage("dispatch", slam._chunk)
-    slam._compact_fn = stage("compact", slam._compact_fn)
-    slam._adopt_device_keyframe = stage("adopt", slam._adopt_device_keyframe)
-    slam._enforce_budget = stage("budget", slam._enforce_budget)
-    slam._boundary_heavy = stage("heavy BA", slam._boundary_heavy)
-    slam._install_reference = stage("install", slam._install_reference)
-    fetch0 = cs_mod.to_host
-    cs_mod.to_host = stage("fetch", fetch0)
+    stage_ms, timing, undo_stages = boundary_stages(slam, cs_mod)
     hc = heavy_counters(slam)
 
     for fn in counters:
@@ -1838,7 +1882,7 @@ def run_full_pipeline(torch, np, dev, counters, async_boundary=False, sync_check
     finally:
         if sync_check:
             counting.__exit__(None, None, None)
-    cs_mod.to_host = fetch0
+    undo_stages()
     n_chunks = max(seen["chunk"] - chunks_before, 1)
     per_chunk_ms = {k: round(v / n_chunks, 2) for k, v in stage_ms.items()}
     per_chunk_ms["other"] = round(dt * 1e3 / n_chunks - sum(stage_ms.values()) / n_chunks, 2)
@@ -1943,6 +1987,159 @@ def run_full_pipeline(torch, np, dev, counters, async_boundary=False, sync_check
     if d_pose > BA_POSE_ATOL:
         raise AssertionError(f"BA poses on the card differ from the CPU's by {d_pose}")
     return launches, report
+
+
+def run_stereo_pipeline(torch, np, dev, k1_batched, k1_levels, k2, k3) -> dict:
+    """bench_stereo_pipeline through the port's entry points on the card,
+    uncut: ``CompiledSLAM(camera, config).track([left, right], t)`` per pair,
+    ``flush()`` and ``trajectory()``; the bootstrap, warm-up and timed
+    window of the bench (tests/stereo_pipeline_world.py). Prints the FPS,
+    the metric ATE, keyframes, landmarks, the bootstrap pair, LOST pairs,
+    the device-minted slots per promotion, double mints, BA solves over the
+    landmark cap and the largest map, host syncs per chunk over the warm-up
+    (against the mono full pipeline's), K1 / K2 / K3 launches per pair and
+    peak device memory. Returns the report, with the run's launches of the
+    four wrappers; raises if a gate fails."""
+    import stereo_pipeline_world as spw
+
+    from visual_slam_tpu_torch.camera import PinholeCamera
+    from visual_slam_tpu_torch.config import Config
+    from visual_slam_tpu_torch.models import CompiledSLAM
+    from visual_slam_tpu_torch.models import compiled_slam as cs_mod
+    from visual_slam_tpu_torch.utils.metrics import ate_rmse
+
+    t_phase = time.perf_counter()
+    lefts, rights, K, Ts_gt = spw.stereo_frames()
+    n = len(lefts)
+    log(f"stereo pipeline world: {n} pairs {lefts.shape[1:]}, baseline {spw.BASELINE} m, rendered in "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    slam = CompiledSLAM(spw.camera(PinholeCamera, lefts, K), spw.config(Config), device=dev)
+    if not slam._stereo:
+        raise AssertionError("stereo pipeline: the system did not build the stereo step")
+    probe = spw.Probe(slam)
+    seen = collections.Counter()
+    tracker, step = slam._feature_tracker, slam._step
+    detect0, match0, forward0, brute0, run_chunk0 = (tracker.detectAndCompute, tracker.match, step.forward,
+                                                     slam._brute_recover, slam._run_chunk)
+
+    def detect(img):
+        seen["detect"] += 1
+        return detect0(img)
+
+    def match(f1, f2, **kw):
+        seen["match"] += 1
+        return match0(f1, f2, **kw)
+
+    def forward(state, img):
+        seen["step"] += 1
+        return forward0(state, img)
+
+    def brute(out, ts):
+        seen["brute"] += 1
+        seen["brute_match"] += min(3, slam.map.num_keyframes())
+        return brute0(out, ts)
+
+    def run_chunk():
+        seen["chunk"] += 1
+        return run_chunk0()
+
+    tracker.detectAndCompute, tracker.match, step.forward = detect, match, forward
+    slam._brute_recover, slam._run_chunk = brute, run_chunk
+    stage_ms, timing, undo_stages = boundary_stages(slam, cs_mod)
+    counters = (k1_batched, k1_levels, k2, k3)
+    before = [c.launches for c in counters]
+    states = {}
+
+    def track(k):
+        states[k] = slam.track([lefts[k], rights[k]], timestamp=k * spw.DT)["state"]
+
+    i = 0
+    t0 = time.perf_counter()
+    while slam.state.name != "OK" and i < spw.BOOT_FRAMES:
+        track(i)
+        i += 1
+    if slam.state.name != "OK":
+        raise AssertionError(f"stereo pipeline: no bootstrap in the first {spw.BOOT_FRAMES} pairs")
+    boot = i - 1
+    log(f"stereo pipeline: bootstrap on pair {boot} ({time.perf_counter() - t0:.2f} s): "
+        f"{slam.map.num_keyframes()} keyframe, {slam.map.num_map_points()} landmarks")
+    warm_end, n_end = spw.schedule(i, n)
+    chunks0 = seen["chunk"]
+    t0 = time.perf_counter()
+    with count_syncs(torch) as sync_at:
+        while i < warm_end:
+            track(i)
+            i += 1
+        torch.cuda.synchronize()
+    n_warm = seen["chunk"] - chunks0
+    syncs_per_chunk = sum(sync_at.values()) / max(n_warm, 1)
+    log(f"stereo pipeline: warm-up pairs {boot + 1}-{warm_end - 1} ({time.perf_counter() - t0:.2f} s): {n_warm} "
+        f"chunk boundaries; host syncs per chunk {syncs_per_chunk:.1f} (mono full pipeline "
+        f"{MONO_FP_SYNCS_PER_CHUNK}), by source line {dict(sync_at.most_common())}")
+    chunks0 = seen["chunk"]
+    torch.cuda.synchronize()
+    timing["on"] = True
+    t0 = time.perf_counter()
+    for k in range(i, n_end):
+        track(k)
+    slam.flush()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    timing["on"] = False
+    undo_stages()
+    n_timed = n_end - i
+    n_chunks = max(seen["chunk"] - chunks0, 1)
+    chunk_stage_ms = {k: round(v / n_chunks, 2) for k, v in stage_ms.items()}
+    chunk_stage_ms["other"] = round(dt * 1e3 / n_chunks - sum(stage_ms.values()) / n_chunks, 2)
+    ts, Ts = slam.trajectory()
+    rmse, ate_pct, path = spw.metric_ate(ate_rmse, ts, Ts, Ts_gt)
+    rmse_sim, scale = spw.scale_fit(ate_rmse, ts, Ts, Ts_gt)
+    launches = [c.launches - b for c, b in zip(counters, before)]
+    pairs = seen["detect"] + seen["step"]
+    lost = sorted(k for k, st in states.items() if st == "LOST")
+    report = dict(stereo_pipeline_fps=n_timed / dt, stereo_pipeline_ate_pct_of_path_metric=ate_pct,
+                  ate_rmse_m=rmse, path_m=path, ate_scale_aligned_m=rmse_sim, fitted_scale=scale,
+                  keyframe_centre_err_m=spw.keyframe_errors(slam.map.get_keyframes(), Ts_gt),
+                  frames_timed=n_timed, chunk_ms=dt * 1e3 / n_chunks, chunk_stage_ms=chunk_stage_ms,
+                  keyframes=slam.map.num_keyframes(), landmarks=slam.map.num_map_points(), bootstrap_frame=boot,
+                  lost_frames=lost, final_state=slam.state.name, syncs_per_chunk=syncs_per_chunk,
+                  brute_recoveries=seen["brute"], launches_k1_batched_k1_levels_k2_k3=launches,
+                  k1_k2_k3_per_pair=[round(launches[0] / pairs, 3), round(launches[2] / pairs, 3),
+                                     round(launches[3] / pairs, 3)],
+                  peak_mib=torch.cuda.max_memory_allocated() / 2**20, ba_shapes=sorted(slam.optimizer.shapes_seen),
+                  **probe.summary())
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"stereo pipeline: {json.dumps(report)}")
+    log(f"stereo pipeline: FPS {report['stereo_pipeline_fps']:.2f} ({n_timed} pairs timed in {dt:.3f} s, flush "
+        f"inside, {report['chunk_ms']:.1f} ms a chunk: {chunk_stage_ms}), metric ATE {rmse:.4f} m = "
+        f"{ate_pct:.3f} % of a "
+        f"{path:.2f} m path (JAX on the CPU {SP_JAX['ate_pct']} %), {report['keyframes']} keyframes, "
+        f"{report['landmarks']} landmarks (largest map {probe.largest_map}; BA solves over the "
+        f"{spw.MAX_POINTS}-landmark cap {probe.cap_hits}, the largest handed {probe.largest_solve}), device-minted "
+        f"slots per promotion {probe.minted}, double mints {probe.double_mints}, LOST pairs {lost}, peak device "
+        f"memory {report['peak_mib']:.1f} MiB, phase {report['phase_s']:.1f} s")
+    expected = [pairs, 0, seen["match"] + seen["step"] + seen["brute_match"], seen["step"]]
+    log(f"stereo pipeline launches K1 batched, K1 one-frame, K2, K3: {launches} (expected {expected}: "
+        f"{seen['detect']} bootstrap pair detects, {seen['step']} steps, {seen['match']} bootstrap matches, "
+        f"{seen['brute_match']} brute-recovery matches)")
+
+    ate_max = max(2 * SP_JAX["ate_pct"], SP_ATE_PCT_FLOOR)
+    if boot != SP_JAX["bootstrap_frame"]:
+        raise AssertionError(f"stereo pipeline: bootstrap on pair {boot}, JAX's on {SP_JAX['bootstrap_frame']}")
+    if lost or slam.state.name != "OK":
+        raise AssertionError(f"stereo pipeline: LOST pairs {lost}, final state {slam.state.name}")
+    if not (len(ts) == n_end - boot and np.allclose(ts, spw.DT * np.arange(boot, n_end))):
+        raise AssertionError(f"stereo pipeline: pairs {boot}-{n_end - 1} should each have one pose")
+    if not np.isfinite(Ts).all():
+        raise AssertionError("stereo pipeline: non-finite poses in the trajectory")
+    if not ate_pct <= ate_max:
+        raise AssertionError(f"stereo pipeline: metric ATE {ate_pct:.3f} % of path above {ate_max} %")
+    if not probe.minted or not sum(probe.minted):
+        raise AssertionError(f"stereo pipeline: no device-minted slot ({probe.minted})")
+    if launches != expected:
+        raise AssertionError(f"stereo pipeline launches {launches} != {expected}")
+    return report
 
 
 def facade_counters(slam, seen, stage_ms, timing):
@@ -3034,6 +3231,9 @@ def main() -> int:
         fp_launches = [a + b for a, b in zip(fp_launches, more)]
     run_ba_layouts(torch, np, dev)
     elapsed("the full pipeline's three runs and the BA layouts")
+    sp = run_stereo_pipeline(torch, np, dev, patches_and_moments_batched, patches_and_moments_levels, mk.hamming_top2,
+                             mk.guided_top2)
+    elapsed("the stereo pipeline")
     facade_launches = run_facade_phases(torch, np, dev, counters)
     elapsed("the facade")
     depth = run_depth_facade_phases(torch, np, dev, (LaunchSum(patches_and_moments_levels,
@@ -3044,14 +3244,17 @@ def main() -> int:
     lp_launches, lp_k4, lp_k4_args = run_loop_pipeline(torch, np, dev, counters)
     elapsed("the loop pipeline")
     ss_launches = [0, ss["k2"], ss["k3"], 0, 0]
-    parts = list(zip(launches, ss_launches, loop_launches, fp_launches, facade_launches, stereo_launches,
-                     lp_launches))
+    k1b, k1l, sp_k2, sp_k3 = sp["launches_k1_batched_k1_levels_k2_k3"]
+    sp_launches = [k1l, sp_k2, sp_k3, 0, 0]
+    parts = list(zip(launches, ss_launches, loop_launches, fp_launches, sp_launches, facade_launches,
+                     stereo_launches, lp_launches))
     for row, part in zip(rows, parts):
         row["launches"] = sum(part)
     for row, n in zip(rows[len(parts):], multiseq_launches):
         row["launches"] = n
-    # The stereo pairs' K1 at B = 2: the stereo facade's and the stereo step's.
-    rows[len(parts) + len(multiseq_launches)]["launches"] = stereo["k1_batched"] + ss["k1_b2"]
+    # The stereo pairs' K1 at B = 2: the stereo facade's, the stereo step's
+    # and the stereo pipeline's.
+    rows[len(parts) + len(multiseq_launches)]["launches"] = stereo["k1_batched"] + ss["k1_b2"] + k1b
     for row, key in zip(rgbd_rows, ("k1", "k2", "k3")):
         row["launches"] = rgbd[key]
         if not row["launches"]:
@@ -3059,10 +3262,11 @@ def main() -> int:
     if rgbd["k1_batched"] or rgbd["k4"]:
         raise AssertionError(f"RGB-D phases launched the batched K1 {rgbd['k1_batched']} and K4 {rgbd['k4']} times")
     rows.append(k1_b8_row)
-    log("launches per kernel (tracking, stereo step, loop path, full pipeline with its two async runs, facade "
-        "phases, stereo facade phases, loop pipeline phases with the async and sparse passes): "
+    log("launches per kernel (tracking, stereo step, loop path, full pipeline with its two async runs, stereo "
+        "pipeline, facade phases, stereo facade phases, loop pipeline phases with the async and sparse passes): "
         f"{[(r['name'], *part) for r, part in zip(rows, parts)]}; K5 has no caller on any path; "
-        f"batched (multiseq phase; stereo phases and the stereo step), RGB-D phases and the batched stereo step: "
+        f"batched (multiseq phase; stereo facade phases, the stereo step and the stereo pipeline ({k1b})), RGB-D "
+        f"phases and the batched stereo step: "
         f"{[(r['name'], r['launches']) for r in rows[len(parts):]]}")
     # K4 at the ring's own shortlist shapes: the on pass's fullest detect.
     rows.append(k4_row(torch, lp_k4_args, "hamming_top2_batched, loop pipeline shortlist"))

@@ -351,7 +351,6 @@ def test_adopt_device_keyframe_drops_stale_inherits():
 
 
 @pytest.mark.parametrize("section,key,value", [
-    ("camera", "sensor_type", "stereo"),
     ("camera", "sensor_type", "rgbd"),
     ("feature", "ragged_descriptors", True),
 ])
@@ -361,3 +360,30 @@ def test_unported_switches_raise(section, key, value):
     with pytest.raises(NotImplementedError):
         CompiledSLAM(PinholeCamera(width=320, height=240, K=np.diag([300.0, 300.0, 1.0])), cfg, device="cpu")
 
+
+
+@pytest.mark.parametrize("route", ["single", "plain", "promotion"])
+@pytest.mark.parametrize("baseline,use_depth", [(0.0, True), (0.5, False), (0.0, False)])
+def test_stereo_without_baseline_runs_mono(baseline, use_depth, route):
+    """A stereo configuration whose camera has no positive baseline, or with
+    ``tracking.use_depth_residual`` off, builds the mono step in both
+    packages (JAX compiled_slam.py:80-83) on every route: it takes the left
+    image alone, and raises nothing."""
+    from visual_slam_tpu.config import Config as JConfig
+
+    cfgs = []
+    for cls in (JConfig, Config):
+        cfg = cls.from_dict(jax_small_config().to_dict())
+        cfg.camera.sensor_type = "stereo"
+        cfg.tracking.use_depth_residual = use_depth
+        cfg.tracking.chunk_size = 1 if route == "single" else 4
+        cfg.tracking.device_promotion = route == "promotion"
+        cfgs.append(cfg)
+    K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]])
+    js = JCompiledSLAM(JCamera(width=320, height=240, K=K, baseline=baseline), cfgs[0])
+    ts = CompiledSLAM(PinholeCamera(width=320, height=240, K=K, baseline=baseline), cfgs[1], device="cpu")
+    assert js._stereo is False and ts._stereo is False and ts._step.stereo is False
+    assert getattr(ts._chunk, "stereo", False) is False
+    left, right = np.zeros((240, 320), np.float32), np.ones((240, 320), np.float32)
+    assert np.asarray(js._img_arg([left, right])).shape == (240, 320)
+    assert ts._img_arg([left, right]).shape == (240, 320) and ts._img_buf([left, right]) is left

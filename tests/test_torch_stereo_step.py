@@ -343,8 +343,10 @@ def test_stereo_without_baseline_raises():
                  lambda: make_batched_vo(K, stereo=True, device="cpu")):
         with pytest.raises(ValueError, match="baseline"):
             make()
-    with pytest.raises(NotImplementedError, match="M9b-2"):
-        tp.make_track_chunk_promote(tp.make_track_step(K, stereo=True, baseline=BL, device="cpu"), K, stereo=True)
+    # With a baseline, the self-promoting chunk takes the stereo step (it
+    # raised before stereo promotion was ported).
+    chunk = tp.make_track_chunk_promote(tp.make_track_step(K, stereo=True, baseline=BL, device="cpu"), K, stereo=True)
+    assert chunk.stereo and chunk.step.stereo
 
 
 @pytest.mark.cuda

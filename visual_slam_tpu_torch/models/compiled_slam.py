@@ -1,5 +1,5 @@
-"""CompiledSLAM: the full mono SLAM system around the fused tracking step
-(port of ``visual_slam_tpu.models.compiled_slam``).
+"""CompiledSLAM: the full mono or stereo SLAM system around the fused
+tracking step (port of ``visual_slam_tpu.models.compiled_slam``).
 
 ``CompiledSLAM(camera, config, device=...)`` then ``track(images,
 timestamp)`` per frame, ``flush()`` at the end of a sequence and
@@ -38,9 +38,17 @@ multi-keyframe recovery before it is declared LOST; a LOST system
 relocalizes against recent keyframes. Keyframe features stay on the
 device; their host views are filled from the fetch that brought them.
 
+Stereo (``camera.sensor_type = "stereo"`` with ``tracking.use_depth_residual``
+and a camera ``baseline`` > 0; otherwise the mono step runs, as in the JAX
+package): ``track([left, right], t)``; the step takes the rectified pair,
+the bootstrap is one pair's metric map, and new landmarks come from the
+step's disparity depths: minted inside the self-promoting chunk
+(``make_track_chunk_promote(stereo=True)``), and on a heavy host promotion
+(per frame, plain chunks, relocalization) by ``_create_stereo_points``.
+
 Not ported yet, each raising ``NotImplementedError`` when its switch is
-on: stereo and RGB-D sensors (ROADMAP M9b), landmark-minor bundle
-adjustment (``optimization.lm_minor``) and ragged descriptors.
+on: the RGB-D sensor (ROADMAP M9b-3), landmark-minor bundle adjustment
+(``optimization.lm_minor``) and ragged descriptors.
 
 ``save(path)`` checkpoints the map, the trajectory and the config in the
 JAX package's format; ``CompiledSLAM.resume(path, camera, device=...)``
@@ -64,6 +72,7 @@ from ..ops.detector import Features
 from ..ops.matching import match_descriptors
 from ..ops.pnp import ransac_pnp
 from ..ops.projection import normalize_points
+from ..ops.stereo import backproject_np
 from ..ops.triangulation import triangulate_gated
 from ..pipeline import (
     PromoteRecord,
@@ -103,9 +112,9 @@ class CompiledSLAM:
         fcfg = self.config.feature
         tcfg = self.config.tracking
         ocfg = self.config.optimization
-        if self.config.camera.sensor_type != "monocular":
-            raise NotImplementedError(f"the {self.config.camera.sensor_type} CompiledSLAM is not ported yet: "
-                                      "ROADMAP M9b")
+        sensor = self.config.camera.sensor_type
+        if sensor not in ("monocular", "stereo"):
+            raise NotImplementedError(f"the {sensor} CompiledSLAM is not ported yet: ROADMAP M9b-3")
         if fcfg.ragged_descriptors:
             raise NotImplementedError("ragged descriptors are not ported yet")
         self._chunk_size = max(1, int(tcfg.chunk_size))
@@ -115,6 +124,10 @@ class CompiledSLAM:
         self.optimizer = LMOptimizer(self.config, camera, logger=self.logger, device=self.device)
         self.state = State.NO_IMAGES_YET
         self._arena_size = int(tcfg.local_map_size)
+        # A rectified stereo rig: the step takes (2, H, W) pairs, measures
+        # each keypoint's depth and solves the depth-aware PnP.
+        baseline = float(getattr(camera, "baseline", 0.0))
+        self._stereo = sensor == "stereo" and tcfg.use_depth_residual and baseline > 0
         self._step = make_track_step(
             camera.K,
             num_features=fcfg.num_features,
@@ -130,6 +143,10 @@ class CompiledSLAM:
             height=camera.height,
             guided_radius_px=tcfg.guided_radius_px,
             guided_ratio=tcfg.guided_ratio,
+            stereo=self._stereo,
+            baseline=baseline,
+            stereo_row_tolerance=tcfg.stereo_row_tolerance,
+            min_depth=self.config.local_mapping.min_depth,
             device=self.device,
         )
         self._track_state = None
@@ -152,6 +169,7 @@ class CompiledSLAM:
                 max_depth=lcfg.max_depth,
                 min_parallax_deg=lcfg.min_parallax_deg,
                 pnp_threshold_px=tcfg.pnp_threshold_px,
+                stereo=self._stereo,
             )
         else:
             self._chunk = make_track_chunk(self._step)
@@ -196,11 +214,22 @@ class CompiledSLAM:
             return self._track_chunked(imgs, timestamp)
         return self._track_compiled(imgs, timestamp)
 
+    def _camera_images(self, imgs) -> list:
+        """The images the step takes: [left, right] on a stereo system, else
+        the first."""
+        if not self._stereo:
+            return imgs[:1]
+        if len(imgs) < 2:
+            raise ValueError("stereo-configured CompiledSLAM needs [left, right] images")
+        return imgs[:2]
+
     def _img_arg(self, imgs) -> torch.Tensor:
-        # The dtype is kept (uint8 uploads 4x less than f32; the detector
-        # casts on the device).
-        im = imgs[0]
-        return im.to(self.device) if isinstance(im, torch.Tensor) else to_device(np.asarray(im), self.device)
+        """One frame (H, W), or a stereo pair (2, H, W), on the device. The
+        dtype is kept (uint8 uploads 4x less than f32; the detector casts on
+        the device)."""
+        ims = [im.to(self.device) if isinstance(im, torch.Tensor) else to_device(np.asarray(im), self.device)
+               for im in self._camera_images(imgs)]
+        return torch.stack(ims) if self._stereo else ims[0]
 
     def flush(self) -> dict:
         """Run the buffered partial chunk and the deferred decision of the
@@ -320,9 +349,26 @@ class CompiledSLAM:
         if self._initializer.initialize(imgs, timestamp, depth):
             self.state = State.OK
             kf = self.map.get_last_keyframe()
+            if self._stereo:
+                self._describe_bootstrap(kf)
             self._install_reference(kf, T_init=kf.T_w2c)
             self.poses.append(((timestamp,), self._dev_pose(kf.T_w2c), kf, kf.T_w2c.copy()))
         return {"state": self.state.name}
+
+    @staticmethod
+    def _describe_bootstrap(kf: KeyFrame) -> None:
+        """Give each landmark of the one-pair bootstrap the descriptor of the
+        keypoint it was made from, as the two-view bootstrap does. The
+        one-pair bootstrap leaves them without one (in the JAX package
+        too), so the landmark arena stays empty until the first adopted
+        keyframe and the first chunk tracks against the bootstrap block
+        alone, with so few PnP inliers left by its fourth pair at KITTI
+        width that float rounding decides where the first keyframe lands
+        (ROADMAP F6, a departure from the JAX package)."""
+        desc = kf.descriptors(0)
+        for (cam, i), mp in kf.map_points.items():
+            if cam == 0 and mp.descriptor is None:
+                mp.descriptor = desc[i].copy()
 
     def _relocalize(self, imgs, timestamp) -> dict:
         """LOST recovery: the step against each recent keyframe's reference
@@ -425,15 +471,25 @@ class CompiledSLAM:
 
     def _img_buf(self, imgs):
         """Per-frame chunk-buffer entry, kept on the host so the chunk
-        uploads as one stacked copy; float frames as f16 with
-        ``tracking.upload_f16`` (the detector casts to f32 on the device)."""
-        im = imgs[0]
+        uploads as one stacked copy (a stereo pair as one (2, H, W) entry);
+        float frames as f16 with ``tracking.upload_f16`` (the detector casts
+        to f32 on the device)."""
+        ims = [self._upload_cast(im) for im in self._camera_images(imgs)]
+        if not self._stereo:
+            return ims[0]
+        if any(isinstance(im, torch.Tensor) for im in ims):
+            return torch.stack([torch.as_tensor(im).to(self.device) for im in ims])
+        return np.stack(ims)
+
+    def _upload_cast(self, im):
         if (self.config.tracking.upload_f16 and isinstance(im, np.ndarray)
                 and im.dtype in (np.float32, np.float64)):
             return im.astype(np.float16)
         return im
 
     def _stack_imgs(self, imgs) -> torch.Tensor:
+        """The chunk's entries as one contiguous (C, H, W) or (C, 2, H, W)
+        tensor on the device (the kernels take dense rows)."""
         if any(isinstance(im, torch.Tensor) for im in imgs):
             return torch.stack([torch.as_tensor(im).to(self.device) for im in imgs])
         return to_device(np.stack(imgs), self.device)
@@ -1022,6 +1078,11 @@ class CompiledSLAM:
         inherited, ref_mask = self._inherit(kf, ref, arena, ti, m_ok, inl, g_idx, g_ok & inl)
         # New landmarks come from matched but landmark-less pairs.
         tri_mask = m_ok & ~ref_mask[ti] & ~inherited if heavy else None
+        # Stereo: a metric landmark for every depth-measured keypoint still
+        # without one. tri_mask above predates them, as in the JAX package,
+        # so the boundary triangulation below may write over such a slot.
+        if heavy and self._stereo and host.kp_z is not None:
+            self._create_stereo_points(kf, host)
         self.map.add_keyframe(kf)
         self._frames_since_kf = 0
         self._enforce_budget()
@@ -1070,6 +1131,26 @@ class CompiledSLAM:
         self.logger.debug("promote(%s): %d matches (%d to landmarks), %d inherited, %d triangulated, kf landmarks %d",
                           "heavy" if heavy else "light", int(m_ok.sum()), int((m_ok & ref_mask[ti]).sum()),
                           int(inherited.sum()), created, kf.num_map_points())
+
+    def _create_stereo_points(self, kf: KeyFrame, host) -> int:
+        """Mint a landmark, back-projected from its disparity depth, for
+        every valid keypoint of ``kf`` with min_depth < z < max_depth and no
+        landmark yet; ``host`` is the step output's host copy. Sets
+        ``kf.kp_z`` / ``kf.kp_z_valid``. Returns the number minted."""
+        lcfg = self.config.local_mapping
+        z = np.asarray(host.kp_z)
+        ok = np.asarray(host.kp_z_valid) & kf.valid_mask(0) & (z > lcfg.min_depth) & (z < lcfg.max_depth)
+        kf.kp_z, kf.kp_z_valid = z, ok
+        p_w = backproject_np(self.camera.Kinv, kf.R_c2w, kf.t_c2w, kf.keypoints(0), z)
+        desc = kf.descriptors(0)
+        created = 0
+        for i in np.nonzero(ok)[0]:
+            if kf.get_map_point(0, int(i)) is None:
+                mp = MapPoint(p_w[i], descriptor=desc[i])
+                kf.add_map_point(0, int(i), mp)
+                self.map.add_map_point(mp)
+                created += 1
+        return created
 
     def _triangulate_dispatch(self, kf: KeyFrame, ref: KeyFrame, ti, T_ref=None, T_kf=None):
         """Start the boundary triangulation (``triangulate_gated``) of kf's

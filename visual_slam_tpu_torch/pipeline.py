@@ -23,8 +23,9 @@ chunk boundary into one small structure.
 (2, H, W) left/right pair (or (B, 2, H, W) pairs of B sequences), detects
 both cameras as one batch (one K1 launch), measures each left keypoint's
 depth with the row-gated matcher (``ops.stereo``) and solves the
-depth-aware PnP. Stereo in-chunk promotion is not ported yet:
-``make_track_chunk_promote(stereo=True)`` raises (ROADMAP M9b-2).
+depth-aware PnP. ``make_track_chunk_promote(stereo=True)`` promotes over
+such pairs and mints the new reference block's fresh landmarks from the
+step's own disparity depths.
 
 ``make_frame_step`` builds the host facade's one-call frame step, for
 monocular, stereo (a (2, H, W) pair detected as one batch) and RGB-D
@@ -404,12 +405,15 @@ class PromoteRecord(NamedTuple):
 
 
 def promote_block(s: TrackState, out: TrackOutput, T_ref: torch.Tensor, Kinv: torch.Tensor, min_depth,
-                  max_depth, min_parallax_rad, reproj_thresh_n):
+                  max_depth, min_parallax_rad, reproj_thresh_n, stereo: bool = False):
     """The new reference block from the current frame's associations:
     landmarks inherited through the guided arena match (which wins) or the
-    reference-block match, PnP inliers only, and fresh ones triangulated
-    against the old reference (``triangulate_gated``) for matched keypoints
-    without a landmark. Returns (state with the new block, ref_pos (K, 3),
+    reference-block match, PnP inliers only, and fresh ones for the rest.
+    Mono: triangulated against the old reference (``triangulate_gated``)
+    for matched keypoints without a landmark. ``stereo``: every valid
+    keypoint without one whose disparity depth lies in (min_depth,
+    max_depth), back-projected from the current pose (no parallax or
+    reprojection gate). Returns (state with the new block, ref_pos (K, 3),
     ref_has (K,), ref_tri (K,))."""
     ti = out.match_train_idx
     inl = out.pnp_inliers
@@ -420,10 +424,19 @@ def promote_block(s: TrackState, out: TrackOutput, T_ref: torch.Tensor, Kinv: to
     if s.lm_pos is not None:
         pos = torch.where(g_ok[:, None], s.lm_pos[out.guided_idx], pos)
     has = g_ok | inherit_ref
-    tri_cand = out.match_valid & ~has_ref & ~has
-    pts_tri, tri_good = triangulate_gated(Kinv, T_ref, out.T_w2c, s.ref_feats.xy[ti], out.features.xy,
-                                          min_depth, max_depth, min_parallax_rad, reproj_thresh_n)
-    tri_ok = tri_cand & tri_good
+    if stereo:
+        # x_cam = z Kinv [u, v, 1], X = R^T (x_cam - t), in JAX's order.
+        z = out.kp_z
+        tri_ok = out.features.valid & ~has & out.kp_z_valid & (z > min_depth) & (z < max_depth)
+        xy = out.features.xy
+        uv1 = torch.cat([xy, torch.ones_like(xy[:, :1])], -1)
+        x_cam = (uv1 @ Kinv.T) * z[:, None]
+        pts_tri = (x_cam - out.T_w2c[:3, 3]) @ out.T_w2c[:3, :3]
+    else:
+        tri_cand = out.match_valid & ~has_ref & ~has
+        pts_tri, tri_good = triangulate_gated(Kinv, T_ref, out.T_w2c, s.ref_feats.xy[ti], out.features.xy,
+                                              min_depth, max_depth, min_parallax_rad, reproj_thresh_n)
+        tri_ok = tri_cand & tri_good
     pos = torch.where(tri_ok[:, None], pts_tri, pos)
     has = has | tri_ok
     return s._replace(ref_feats=out.features, ref_landmarks=pos, ref_has_landmark=has), pos, has, tri_ok
@@ -433,7 +446,9 @@ class TrackChunkPromote:
     """Chunked tracking with in-chunk keyframe promotion:
     ``chunk(state, fsr, T_ref, imgs (C, H, W), n_valid=None) -> (state,
     fsr, T_ref, outs, recs)`` with every leaf of ``outs`` (TrackOutput) and
-    ``recs`` (PromoteRecord) stacked along a leading C axis. ``fsr`` counts
+    ``recs`` (PromoteRecord) stacked along a leading C axis; with
+    ``stereo``, a stereo step's (C, 2, H, W) pairs, and the fresh landmarks
+    minted from its depths (``promote_block``). ``fsr`` counts
     frames since the reference and ``T_ref`` is the reference pose; the
     host seeds both at every boundary.
 
@@ -448,8 +463,9 @@ class TrackChunkPromote:
     def __init__(self, track_step: TrackStep, K, min_inliers: int = 15, keyframe_interval: int = 4,
                  kf_min_matches: int = 60, kf_min_rotation_deg: float = 10.0, kf_min_translation: float = 1.0,
                  min_depth: float = 0.1, max_depth: float = 1e6, min_parallax_deg: float = 0.5,
-                 pnp_threshold_px: float = 3.0):
+                 pnp_threshold_px: float = 3.0, stereo: bool = False):
         self.step = track_step
+        self.stereo = stereo
         self.min_inliers = min_inliers
         self.keyframe_interval = keyframe_interval
         self.kf_min_matches = kf_min_matches
@@ -490,7 +506,7 @@ class TrackChunkPromote:
             )
             promote = (out.n_inliers >= self.min_inliers) & trigger
             with record_function("promote_block"):
-                s2, pos, has, tri = promote_block(state, out, T_ref, self.Kinv, *self.gates)
+                s2, pos, has, tri = promote_block(state, out, T_ref, self.Kinv, *self.gates, stereo=self.stereo)
             state = state._replace(
                 ref_feats=Features(*[torch.where(promote, a, b) for a, b in zip(s2.ref_feats, state.ref_feats)]),
                 ref_landmarks=torch.where(promote, s2.ref_landmarks, state.ref_landmarks),
@@ -503,10 +519,8 @@ class TrackChunkPromote:
         return state, fsr, T_ref, _stack(outs), _stack(recs)
 
 
-def make_track_chunk_promote(track_step: TrackStep, K, stereo: bool = False, **kwargs) -> TrackChunkPromote:
+def make_track_chunk_promote(track_step: TrackStep, K, **kwargs) -> TrackChunkPromote:
     """Build the self-promoting chunk; keyword arguments as ``TrackChunkPromote``."""
-    if stereo:
-        raise NotImplementedError("stereo in-chunk promotion is not ported yet: ROADMAP M9b-2")
     return TrackChunkPromote(track_step, K, **kwargs)
 
 
