@@ -16,7 +16,8 @@
    facade's B = 2 (its world's first pair), and at the batched stereo
    step's B = 8 (four pairs, after the stereo step phase). K1, K2 and K3 again at
    the RGB-D facade's shapes: K1 on its world's first frame (640x480) at
-   1000 features, K2 at 1000 x 1000, K3 on its 2048-slot landmark block.
+   1000 features, K2 at 1000 x 1000, K3 on its 2048-slot landmark block,
+   and K3 on RGB-D ``CompiledSLAM``'s 4096-slot arena at 1000 keypoints.
 4. Tracking path: the fused mono tracking step with a 4096-slot local-map
    arena, 2000 features, 4 levels, 128 RANSAC hypotheses, over a rendered
    376x1240 sprite world (f = 718.856) in two chunks of 8 frames. Checks
@@ -96,6 +97,22 @@
    max(2 x JAX's, SP_ATE_PCT_FLOOR) % of the path, no device-minted slot, or
    launches other than one batched K1 a pair (the one-frame K1 never) and
    the run's steps and matches for K2 and K3.
+   Then the RGB-D pipeline (``run_rgbd_pipeline``): TUM1's world
+   (tests/rgbd_pipeline_world.py: 32 frames at 640x480 with metric depth
+   maps, 1000 features, 4 levels) through RGB-D ``CompiledSLAM``
+   (``track([image], t, depth)``: a one-frame bootstrap from the depth map,
+   then the mono step) in self-promoting chunks of 8 with keyframe
+   interval 2, every frame tracked: the bootstrap, one warm-up chunk (host
+   syncs counted there), the rest timed with ``flush()`` inside. Prints the
+   FPS, a chunk's ms by boundary stage, syncs a chunk, the metric ATE,
+   keyframes, landmarks, heavy boundaries and BA solves, LOST frames, K1 /
+   K2 / K3 launches a frame and peak memory, beside the card's name and
+   power limit. Fails on a bootstrap on another frame than the JAX
+   package's CPU run (RP_JAX), a LOST frame, a frame without a pose, a
+   metric ATE above max(2 x JAX's, RP_ATE_PCT_FLOOR) % of the path, no
+   heavy boundary with a BA solve, or launches other than the run's
+   detects and steps for K1 (one frame; the batched K1 never), its steps
+   and matches for K2, and its steps for K3.
 8. Host SLAM facade (``SLAM``, tests/facade_world.py's worlds), one JSON
    line per phase:
    a. deployment: ``bench.synth_kitti_frames(64, seed=3, step=0.6,
@@ -191,9 +208,11 @@ full-pipeline, stereo pipeline, facade, stereo facade and loop pipeline
 phases; the batched rows' count the batched VO phase's batched steps, the
 B = 2 row's the stereo facade phases', the stereo step's and the stereo
 pipeline's pairs, the B = 8 row's the batched
-stereo step's, the RGB-D rows' the RGB-D phases' launches (each at least
-one), and the loop pipeline's K4 row the K4 launches of its runs. The
-stereo step phases count their first timed repeat and the local-map run.
+stereo step's, the RGB-D rows' the RGB-D facade phases' and the RGB-D
+pipeline's launches (K1 and K2 both; the 2048-slot K3 the facade's, the
+4096-slot K3 the pipeline's; each at least one), and the loop pipeline's
+K4 row the K4 launches of its runs. The stereo step phases count their
+first timed repeat and the local-map run.
 """
 from __future__ import annotations
 
@@ -373,6 +392,22 @@ SS_STEPS, SS_REPS, SS_CHUNK, SS_B, SS_SHORT = 60, 3, 8, 4, 16
 # 1e-6, end at 1.1-2.0 %, one of three reseeded ones LOST.
 SP_JAX = {"bootstrap_frame": 0, "ate_pct": 0.8357}
 SP_ATE_PCT_FLOOR = 2.0
+# RGB-D pipeline: TUM1's world through RGB-D CompiledSLAM
+# (tests/rgbd_pipeline_world.py: 32 frames at 640x480, 1000 features,
+# self-promoting chunks of 8, keyframe interval 2). The JAX package's CPU run
+# of it (scripts/rgbd_pipeline_reference.py --impl jax): bootstrap on frame 0
+# (952 landmarks), no LOST frame, metric ATE 0.2259 m = 2.391 % of the 9.45
+# m path, 14 keyframes, 1745 landmarks, 13 device promotions, 4 heavy
+# boundaries and 4 BA solves. Over RANSAC seeds 1-7 it ends at 1.752-3.130 %
+# (seed 6 LOST at the flush), with the images scaled by 1 + eps (eps +-1e-6,
+# 2e-6, 3e-6) at 0.698-2.775 %; at keyframe interval 4 it keeps its one
+# keyframe and goes LOST at the first chunk boundary. Gates: the bootstrap on
+# JAX's frame, no LOST frame, OK at the end, a pose for every frame, ATE at
+# most max(2 x JAX's, RP_ATE_PCT_FLOOR) % of the path, at least one heavy
+# boundary with a BA solve, K1 (one frame) and K2 as the run's detects, steps
+# and matches, K3 once a step.
+RP_JAX = {"bootstrap_frame": 0, "ate_pct": 2.3913}
+RP_ATE_PCT_FLOOR = 2.0
 MONO_FP_SYNCS_PER_CHUNK = 66  # the mono full pipeline's, PERF.md section 5
 
 
@@ -805,14 +840,16 @@ def check_rgbd_kernels(torch, np, frame, n_features):
     version, then timed: K1 on the levels of ``frame`` (the RGB-D world's
     first frame) at the ``n_features`` budget, K2 at that budget squared
     (the tracker's match), K3 on the landmark block that budget gives
-    (``Tracking._local_landmark_block``: max(2048, 2 x the budget) slots).
-    Returns their rows of the kernels JSON."""
+    (``Tracking._local_landmark_block``: max(2048, 2 x the budget) slots),
+    and K3 on RGB-D ``CompiledSLAM``'s ARENA-slot landmark arena. Returns
+    their rows of the kernels JSON."""
     h, w = frame.shape
     n, arena = n_features, max(2048, 2 * n_features)
     rng = np.random.default_rng(2)
     return [k1_levels_row(torch, np, frame, n, f"patches_and_moments_levels, RGB-D {w}x{h}"),
             k2_row(torch, np, rng, n, f"hamming_top2, RGB-D {n} x {n}"),
-            k3_row(torch, np, rng, arena, n, f"guided_top2, RGB-D {arena} x {n}", size=(w, h))]
+            k3_row(torch, np, rng, arena, n, f"guided_top2, RGB-D {arena} x {n}", size=(w, h)),
+            k3_row(torch, np, rng, ARENA, n, f"guided_top2, RGB-D pipeline {ARENA} x {n}", size=(w, h))]
 
 
 def check_batched_kernels(torch, np, frames):
@@ -2142,6 +2179,150 @@ def run_stereo_pipeline(torch, np, dev, k1_batched, k1_levels, k2, k3) -> dict:
     return report
 
 
+def run_rgbd_pipeline(torch, np, dev, card, world, k1_levels, k1_batched, k2, k3) -> dict:
+    """TUM1's world through RGB-D ``CompiledSLAM`` on the card
+    (tests/rgbd_pipeline_world.py): ``CompiledSLAM(camera, config).track([image],
+    t, depth)`` per frame, ``flush()`` and ``trajectory()``; the bootstrap,
+    one warm-up chunk (host syncs counted there), then the rest of the 32
+    frames timed with ``flush()`` inside. ``world`` is (images, depth maps,
+    K, T_w2c ground truth). Prints the FPS, a chunk's ms by boundary stage,
+    syncs a chunk, the metric ATE, keyframes, landmarks, heavy boundaries, BA
+    solves, LOST frames, K1 / K2 / K3 launches a frame and peak memory,
+    each beside ``card``. Returns the report with the run's launches of the
+    four wrappers (counts set to 0 just before the run); raises if a gate
+    fails."""
+    import rgbd_pipeline_world as rpw
+
+    from visual_slam_tpu_torch.camera import PinholeCamera
+    from visual_slam_tpu_torch.config import Config
+    from visual_slam_tpu_torch.models import CompiledSLAM
+    from visual_slam_tpu_torch.models import compiled_slam as cs_mod
+    from visual_slam_tpu_torch.utils.metrics import ate_rmse
+
+    t_phase = time.perf_counter()
+    imgs, depths, K, Ts_gt = world
+    n = len(imgs)
+    torch.cuda.reset_peak_memory_stats()
+    slam = CompiledSLAM(rpw.camera(PinholeCamera, imgs, K), rpw.tum_config(Config), device=dev)
+    if slam._stereo or slam._step.stereo:
+        raise AssertionError("RGB-D pipeline: the system did not build the mono step")
+    probe = rpw.Probe(slam)
+    seen = collections.Counter()
+    tracker, step = slam._feature_tracker, slam._step
+    detect0, match0, forward0, brute0, run_chunk0 = (tracker.detectAndCompute, tracker.match, step.forward,
+                                                     slam._brute_recover, slam._run_chunk)
+
+    def detect(img):
+        seen["detect"] += 1
+        return detect0(img)
+
+    def match(f1, f2, **kw):
+        seen["match"] += 1
+        return match0(f1, f2, **kw)
+
+    def forward(state, img):
+        seen["step"] += 1
+        return forward0(state, img)
+
+    def brute(out, ts):
+        seen["brute"] += 1
+        seen["brute_match"] += min(3, slam.map.num_keyframes())
+        return brute0(out, ts)
+
+    def run_chunk():
+        seen["chunk"] += 1
+        return run_chunk0()
+
+    tracker.detectAndCompute, tracker.match, step.forward = detect, match, forward
+    slam._brute_recover, slam._run_chunk = brute, run_chunk
+    stage_ms, timing, undo_stages = boundary_stages(slam, cs_mod)
+    counters = (k1_levels, k1_batched, k2, k3)
+    marks, syncs = {}, contextlib.ExitStack()
+
+    def on_frame(phase, i):
+        if phase in marks:
+            return
+        torch.cuda.synchronize()
+        marks[phase] = (time.perf_counter(), i, seen["chunk"])
+        if phase == "warm":
+            marks["sync_at"] = syncs.enter_context(count_syncs(torch))
+        elif phase == "timed":
+            syncs.close()
+            timing["on"] = True
+        elif phase == "flushed":
+            timing["on"] = False
+
+    for fn in counters:
+        fn.launches = 0
+    with syncs:
+        res = rpw.run(slam, imgs, depths, on_frame)
+    launches = [fn.launches for fn in counters]
+    undo_stages()
+    boot = res["bootstrap_frame"]
+    if boot is None:
+        raise AssertionError(f"RGB-D pipeline: no bootstrap in the first {rpw.BOOT_FRAMES} frames")
+    sync_at = marks["sync_at"]
+    n_warm = marks["timed"][2] - marks["warm"][2]
+    syncs_per_chunk = sum(sync_at.values()) / max(n_warm, 1)
+    (t_timed, i_timed, c_timed), (t_end, _, c_end) = marks["timed"], marks["flushed"]
+    dt, n_timed, n_chunks = t_end - t_timed, n - i_timed, max(c_end - c_timed, 1)
+    chunk_stage_ms = {k: round(v / n_chunks, 2) for k, v in stage_ms.items()}
+    chunk_stage_ms["other"] = round(dt * 1e3 / n_chunks - sum(stage_ms.values()) / n_chunks, 2)
+    ts, Ts = slam.trajectory()
+    rmse, ate_pct, path = rpw.metric_ate(ate_rmse, ts, Ts, Ts_gt)
+    rmse_sim, scale = rpw.scale_fit(ate_rmse, ts, Ts, Ts_gt)
+    lost = rpw.lost_frames(res["states"])
+    # flush() runs the last partial chunk as a full one: its padding slots are
+    # steps too (K1, K2 and K3 each launch there once more).
+    pad = -(n - 1 - boot) % slam.config.tracking.chunk_size
+    report = dict(card=card, rgbd_pipeline_fps=n_timed / dt, rgbd_pipeline_ate_pct_of_path_metric=ate_pct,
+                  ate_rmse_m=rmse, path_m=path, ate_scale_aligned_m=rmse_sim, fitted_scale=scale,
+                  frames_timed=n_timed, chunks_timed=n_chunks, chunk_ms=dt * 1e3 / n_chunks,
+                  chunk_stage_ms=chunk_stage_ms, syncs_per_chunk=syncs_per_chunk, warm_chunks=n_warm,
+                  syncs_by_line=dict(sync_at.most_common()), keyframes=slam.map.num_keyframes(),
+                  landmarks=slam.map.num_map_points(), bootstrap_frame=boot,
+                  bootstrap_landmarks=res["bootstrap_landmarks"],
+                  arena_valid_at_end=int(slam._track_state.lm_valid.sum()),
+                  lost_frames=lost, final_state=slam.state.name, brute_recoveries=seen["brute"],
+                  launches_k1_levels_k1_batched_k2_k3=launches, steps=seen["step"], padded_steps=pad,
+                  k1_k2_k3_per_frame=[round(launches[0] / n, 3), round(launches[2] / n, 3), round(launches[3] / n, 3)],
+                  peak_mib=torch.cuda.max_memory_allocated() / 2**20, ba_shapes=sorted(slam.optimizer.shapes_seen),
+                  **probe.summary())
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"RGB-D pipeline: {json.dumps(report)}")
+    log(f"RGB-D pipeline ({card}): FPS {report['rgbd_pipeline_fps']:.2f} ({n_timed} frames timed in {dt:.3f} s, "
+        f"flush inside, {report['chunk_ms']:.1f} ms a chunk over {n_chunks}: {chunk_stage_ms}), host syncs per "
+        f"chunk {syncs_per_chunk:.1f} (mono full pipeline {MONO_FP_SYNCS_PER_CHUNK}), metric ATE {rmse:.4f} m = "
+        f"{ate_pct:.3f} % of a {path:.2f} m path (JAX on the CPU {RP_JAX['ate_pct']} %), {report['keyframes']} "
+        f"keyframes, {report['landmarks']} landmarks, {probe.heavy_boundaries} heavy boundaries, {probe.ba_solves} "
+        f"BA solves, device-minted slots per promotion {probe.minted}, LOST frames {lost}, K1 / K2 / K3 a frame "
+        f"{report['k1_k2_k3_per_frame']} over {n} frames, peak device memory {report['peak_mib']:.1f} MiB, phase "
+        f"{report['phase_s']:.1f} s")
+    expected = [seen["detect"] + seen["step"], 0, seen["match"] + seen["step"] + seen["brute_match"], seen["step"]]
+    log(f"RGB-D pipeline launches K1 one-frame, K1 batched, K2, K3: {launches} (expected {expected}: "
+        f"{seen['detect']} bootstrap detects, {seen['step']} steps ({pad} of them the flushed chunk's padding), "
+        f"{seen['match']} bootstrap matches, {seen['brute_match']} brute-recovery matches)")
+
+    ate_max = max(2 * RP_JAX["ate_pct"], RP_ATE_PCT_FLOOR)
+    if boot != RP_JAX["bootstrap_frame"]:
+        raise AssertionError(f"RGB-D pipeline: bootstrap on frame {boot}, JAX's on {RP_JAX['bootstrap_frame']}")
+    if lost or slam.state.name != "OK":
+        raise AssertionError(f"RGB-D pipeline: LOST frames {lost}, final state {slam.state.name}")
+    if not (len(ts) == n - boot and np.allclose(ts, rpw.DT * np.arange(boot, n))):
+        raise AssertionError(f"RGB-D pipeline: frames {boot}-{n - 1} should each have one pose")
+    if not np.isfinite(Ts).all():
+        raise AssertionError("RGB-D pipeline: non-finite poses in the trajectory")
+    if not ate_pct <= ate_max:
+        raise AssertionError(f"RGB-D pipeline: metric ATE {ate_pct:.3f} % of path above {ate_max} %")
+    if not (probe.heavy_boundaries and probe.ba_solves):
+        raise AssertionError(f"RGB-D pipeline: {probe.heavy_boundaries} heavy boundaries, {probe.ba_solves} BA solves")
+    if seen["step"] != n - 1 - boot + pad:
+        raise AssertionError(f"RGB-D pipeline: {seen['step']} steps for {n - 1 - boot} frames and {pad} padding")
+    if launches != expected:
+        raise AssertionError(f"RGB-D pipeline launches {launches} != {expected}")
+    return report
+
+
 def facade_counters(slam, seen, stage_ms, timing):
     """Wrap the facade's stages: count the calls that launch a kernel
     (detects: K1; matches: K2; guided matches: K3; loop detects that reach
@@ -2487,12 +2668,13 @@ def check_stereo_pair(torch, np, dev, left, right):
         raise AssertionError(f"stereo pair: batched descriptors agree on {shares} of the bits")
 
 
-def run_depth_facade_phases(torch, np, dev, counters):
+def run_depth_facade_phases(torch, np, dev, counters, rgbd_world):
     """The stereo and RGB-D host facade (``SLAM``) on the card: each sensor's
     world at the default RANSAC seed and DEPTH_SEEDS with ``MonoTracking``,
     then one fused run, each classed and printed; then ``Processing`` over
     an in-memory source of each world. ``counters`` are the K1-K5 wrappers
-    (K1 a ``LaunchSum`` of the one-frame and batched wrappers). Returns, per
+    (K1 a ``LaunchSum`` of the one-frame and batched wrappers);
+    ``rgbd_world`` is ``depth_world.rgbd_frames(RGBD_FRAMES)``. Returns, per
     sensor, the launches summed over its phases by wrapper (``k1``, the
     one-frame K1; ``k1_batched``; ``k2``; ``k3``; ``k4``); raises if a gate
     fails."""
@@ -2511,9 +2693,8 @@ def run_depth_facade_phases(torch, np, dev, counters):
 
     t0 = time.perf_counter()
     lefts, rights, sK, sTs = dw.stereo_frames(STEREO_FRAMES)
-    imgs, depths, rK, rTs = dw.rgbd_frames(RGBD_FRAMES)
-    log(f"rendered the stereo ({len(lefts)} pairs, {lefts[0].shape}) and RGB-D ({len(imgs)} frames, "
-        f"{imgs[0].shape}) worlds in {time.perf_counter() - t0:.2f} s")
+    imgs, depths, rK, rTs = rgbd_world
+    log(f"rendered the stereo world ({len(lefts)} pairs, {lefts[0].shape}) in {time.perf_counter() - t0:.2f} s")
     check_stereo_pair(torch, np, dev, lefts[0], rights[0])
     worlds = {
         "stereo": (lefts, sK, sTs, dw.stereo_config, dw.STEREO_BASELINE, lambda i: ([lefts[i], rights[i]], None)),
@@ -3115,10 +3296,16 @@ def main() -> int:
 
     lefts, rights, _, _ = dw.stereo_frames(1)
     rows.append(batched_k1_row(torch, np, [lefts[0], rights[0]], "patches_and_moments_batched, B = 2 stereo pair"))
-    # K1, K2 and K3 at the RGB-D facade's shapes: its world's first frame.
+    # K1, K2 and K3 at the RGB-D facade's and RGB-D pipeline's shapes: the
+    # RGB-D world's first frame. The world is rendered once, for the RGB-D
+    # pipeline and the RGB-D facade phases.
     from visual_slam_tpu_torch.config import Config
 
-    rgbd_rows = check_rgbd_kernels(torch, np, dw.rgbd_frames(1)[0][0], dw.rgbd_config(Config).feature.num_features)
+    t0 = time.perf_counter()
+    rgbd_world = dw.rgbd_frames(RGBD_FRAMES)
+    log(f"rendered the RGB-D world ({RGBD_FRAMES} frames, {rgbd_world[0][0].shape}) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rgbd_rows = check_rgbd_kernels(torch, np, rgbd_world[0][0], dw.rgbd_config(Config).feature.num_features)
     rows += rgbd_rows
 
     dev = torch.device("cuda")
@@ -3234,10 +3421,14 @@ def main() -> int:
     sp = run_stereo_pipeline(torch, np, dev, patches_and_moments_batched, patches_and_moments_levels, mk.hamming_top2,
                              mk.guided_top2)
     elapsed("the stereo pipeline")
+    rp = run_rgbd_pipeline(torch, np, dev, card, rgbd_world, patches_and_moments_levels, patches_and_moments_batched,
+                           mk.hamming_top2, mk.guided_top2)
+    elapsed("the RGB-D pipeline")
     facade_launches = run_facade_phases(torch, np, dev, counters)
     elapsed("the facade")
     depth = run_depth_facade_phases(torch, np, dev, (LaunchSum(patches_and_moments_levels,
-                                                               patches_and_moments_batched), *counters[1:]))
+                                                               patches_and_moments_batched), *counters[1:]),
+                                    rgbd_world)
     elapsed("the stereo and RGB-D facade")
     stereo, rgbd = depth["stereo"], depth["rgbd"]
     stereo_launches = [stereo["k1"], stereo["k2"], stereo["k3"], stereo["k4"], 0]
@@ -3255,8 +3446,11 @@ def main() -> int:
     # The stereo pairs' K1 at B = 2: the stereo facade's, the stereo step's
     # and the stereo pipeline's.
     rows[len(parts) + len(multiseq_launches)]["launches"] = stereo["k1_batched"] + ss["k1_b2"] + k1b
-    for row, key in zip(rgbd_rows, ("k1", "k2", "k3")):
-        row["launches"] = rgbd[key]
+    # The RGB-D shapes: the facade phases' K1, K2 and K3 (its 2048-slot
+    # block), the RGB-D pipeline's K1 and K2, and its K3 on the 4096-slot arena.
+    rp_k1, _, rp_k2, rp_k3 = rp["launches_k1_levels_k1_batched_k2_k3"]
+    for row, n in zip(rgbd_rows, (rgbd["k1"] + rp_k1, rgbd["k2"] + rp_k2, rgbd["k3"], rp_k3)):
+        row["launches"] = n
         if not row["launches"]:
             raise AssertionError(f"{row['name']}: no launch in the RGB-D phases")
     if rgbd["k1_batched"] or rgbd["k4"]:
@@ -3266,7 +3460,7 @@ def main() -> int:
         "pipeline, facade phases, stereo facade phases, loop pipeline phases with the async and sparse passes): "
         f"{[(r['name'], *part) for r, part in zip(rows, parts)]}; K5 has no caller on any path; "
         f"batched (multiseq phase; stereo facade phases, the stereo step and the stereo pipeline ({k1b})), RGB-D "
-        f"phases and the batched stereo step: "
+        f"facade phases and RGB-D pipeline (K1 {rp_k1}, K2 {rp_k2}, K3 {rp_k3}) and the batched stereo step: "
         f"{[(r['name'], r['launches']) for r in rows[len(parts):]]}")
     # K4 at the ring's own shortlist shapes: the on pass's fullest detect.
     rows.append(k4_row(torch, lp_k4_args, "hamming_top2_batched, loop pipeline shortlist"))

@@ -351,7 +351,6 @@ def test_adopt_device_keyframe_drops_stale_inherits():
 
 
 @pytest.mark.parametrize("section,key,value", [
-    ("camera", "sensor_type", "rgbd"),
     ("feature", "ragged_descriptors", True),
 ])
 def test_unported_switches_raise(section, key, value):

@@ -25,9 +25,9 @@ with that test's settings (tests/depth_world.py).
   are in tests/test_torch_stereo.py, which has room for them.
 - ``StereoVO`` and ``RGBDVO`` set their sensor and bootstrap on frame 0 as
   the JAX package's do; ``StereoVO`` refuses a camera without a baseline.
-- What still raises: ``CompiledSLAM``'s RGB-D (ROADMAP M9b-3; its stereo,
-  ported since, builds the stereo step); a stereo frame without its right
-  image, an RGB-D frame without depth.
+- ``CompiledSLAM`` builds the stereo step for stereo and, as the JAX
+  package does, the mono step for RGB-D; a stereo frame without its right
+  image and an RGB-D frame without depth raise in the facade.
 """
 import jax
 import jax.numpy as jnp
@@ -178,19 +178,20 @@ def test_stereo_metric_scale(stereo_run, impl):
 
 @pytest.mark.parametrize("sensor", ["stereo", "rgbd"])
 def test_unported_depth_paths_raise(sensor):
-    """RGB-D ``CompiledSLAM`` raises (ROADMAP M9b-3); stereo, ported, builds
-    a system around the stereo step."""
+    """Both depth sensors are ported to ``CompiledSLAM``: stereo builds a
+    system around the stereo step; RGB-D, as in the JAX package
+    (compiled_slam.py:80-84), around the mono step, even with a camera
+    baseline."""
     from visual_slam_tpu_torch import models
 
     cam = PinholeCamera(width=320, height=240, K=dw.E2E_K, baseline=0.5)
     cfg = Config()
     cfg.camera.sensor_type = sensor
+    slam = models.CompiledSLAM(cam, cfg, device="cpu")
     if sensor == "stereo":
-        slam = models.CompiledSLAM(cam, cfg, device="cpu")
         assert slam._stereo and slam._step.stereo and slam._step.baseline == 0.5
-        return
-    with pytest.raises(NotImplementedError, match="M9b-3"):
-        models.CompiledSLAM(cam, cfg, device="cpu")
+    else:
+        assert not slam._stereo and not slam._step.stereo
 
 
 @pytest.mark.parametrize("family", ["StereoVO", "RGBDVO"])

@@ -1,4 +1,4 @@
-"""CompiledSLAM: the full mono or stereo SLAM system around the fused
+"""CompiledSLAM: the full mono, stereo or RGB-D SLAM system around the fused
 tracking step (port of ``visual_slam_tpu.models.compiled_slam``).
 
 ``CompiledSLAM(camera, config, device=...)`` then ``track(images,
@@ -46,9 +46,16 @@ step's disparity depths: minted inside the self-promoting chunk
 (``make_track_chunk_promote(stereo=True)``), and on a heavy host promotion
 (per frame, plain chunks, relocalization) by ``_create_stereo_points``.
 
-Not ported yet, each raising ``NotImplementedError`` when its switch is
-on: the RGB-D sensor (ROADMAP M9b-3), landmark-minor bundle adjustment
-(``optimization.lm_minor``) and ragged descriptors.
+RGB-D (``camera.sensor_type = "rgbd"``): ``track([image], t, depth=metres)``;
+as in the JAX package there is no RGB-D step: the bootstrap is one frame's
+metric map from its depth map (``Initializer._initialize_rgbd``; a frame
+without one leaves the system ``INITIALIZING``), after which the mono step,
+the mono chunks and mono promotion with triangulation run, and
+relocalization ignores depth.
+
+Not ported, each raising ``NotImplementedError`` when its switch is on:
+landmark-minor bundle adjustment (``optimization.lm_minor``) and ragged
+descriptors.
 
 ``save(path)`` checkpoints the map, the trajectory and the config in the
 JAX package's format; ``CompiledSLAM.resume(path, camera, device=...)``
@@ -113,8 +120,6 @@ class CompiledSLAM:
         tcfg = self.config.tracking
         ocfg = self.config.optimization
         sensor = self.config.camera.sensor_type
-        if sensor not in ("monocular", "stereo"):
-            raise NotImplementedError(f"the {sensor} CompiledSLAM is not ported yet: ROADMAP M9b-3")
         if fcfg.ragged_descriptors:
             raise NotImplementedError("ragged descriptors are not ported yet")
         self._chunk_size = max(1, int(tcfg.chunk_size))
@@ -346,6 +351,11 @@ class CompiledSLAM:
     # ----------------------------------------------------------- bootstrap
     def _bootstrap(self, imgs, timestamp, depth) -> dict:
         self.state = State.INITIALIZING
+        if depth is None and self.config.camera.sensor_type == "rgbd":
+            # The one-frame RGB-D bootstrap needs the depth map: without one
+            # the JAX package's fails and the system stays INITIALIZING (the
+            # port's Initializer refuses such a frame, as the facade does).
+            return {"state": self.state.name}
         if self._initializer.initialize(imgs, timestamp, depth):
             self.state = State.OK
             kf = self.map.get_last_keyframe()
