@@ -24,6 +24,15 @@
    poses against ground truth and the kernels' launch counts, lists the host
    syncs inside one step, times single steps and chunks, and holds one frame
    against the same step run on the CPU through the plain versions.
+   Every phase that counts host syncs fails on one from ``ops/linalg.py``,
+   ``ops/lie.py``, ``ops/pnp.py`` or ``ops/triangulation.py``
+   (``count_syncs``): on CUDA tensors the small solvers take their direct
+   methods and closed forms. Then the DLT lowerings (``run_lowerings``):
+   RANSAC's 128 minimal samples of 6 points (half all inliers) and an
+   LO-style refit over ~400 inliers at bench width, the CUDA route on the
+   card against the CPU route (``eigh`` and the SVDs) on the same inputs:
+   nullvector alignment, pose differences, each route's ms, and no host
+   sync in the CUDA route.
    Then batched VO (``parallel.make_batched_vo``, BASELINE config 5), one
    JSON line per sub-phase: 4 sprite worlds like this one (seeds 0-3)
    tracked 16 frames at once with the local map and without; gates: every
@@ -96,7 +105,8 @@
    than the JAX package's CPU run (SP_JAX), a LOST pair, a metric ATE above
    max(2 x JAX's, SP_ATE_PCT_FLOOR) % of the path, no device-minted slot, or
    launches other than one batched K1 a pair (the one-frame K1 never) and
-   the run's steps and matches for K2 and K3.
+   the run's steps and matches for K2 and K3. The ATE gate's failure is
+   raised after the last phase, so the phases after this one still run.
    Then the RGB-D pipeline (``run_rgbd_pipeline``): TUM1's world
    (tests/rgbd_pipeline_world.py: 32 frames at 640x480 with metric depth
    maps, 1000 features, 4 levels) through RGB-D ``CompiledSLAM``
@@ -182,7 +192,11 @@
       ``CompiledSLAM.resume(..., device="cuda")`` of the checkpoint, the
       frames after it tracked;
    d. small ring, where the JAX package's on pass closes no loop:
-      test_compiled_slam_devpromo_loop_closing's 100-frame 320x240 world;
+      test_compiled_slam_devpromo_loop_closing's 100-frame 320x240 world,
+      with a checkpoint after SR_CHECKPOINT, then a new system resumed from
+      it as in c. Each resumed pass whose uninterrupted pass closed after
+      its checkpoint must close too, and at least one of the two is held
+      to that;
    e. async: loop closing on, async heavy boundaries at their default
       gates; gates: no LOST frame, OK, ATE <= max(2 x JAX's CPU figure,
       LP_ATE_PCT_FLOOR), K4 launched, an async boundary ran, every async
@@ -359,6 +373,10 @@ STEP_SPANS = ("detect", "stereo_match", "match", "guided_match", "ransac_pnp", "
 LP_JAX = {"on_closures": 0, "on_ate_pct": 0.2828, "off_ate_pct": 0.3323, "async_ate_pct": 0.1946,
           "sparse_ate_pct": 0.3264}
 LP_CHECKPOINT, LP_DT, LP_ATE_PCT_FLOOR = 103, 0.1, 2.0
+# The small ring's checkpoint: a chunk end (bootstrap on frame 4, chunks of
+# 4) before its closure at frame 95 on the card, which its resumed pass must
+# make too (no LOST frame, OK at the end, the saved counts restored).
+SR_CHECKPOINT = 72
 # Stereo tracking step: bench_stereo_step's world and run
 # (tests/stereo_step_world.py). The JAX package's CPU run of it
 # (scripts/stereo_step_reference.py --impl jax): on pair 0, 709 of the 2000
@@ -408,7 +426,15 @@ SP_ATE_PCT_FLOOR = 2.0
 # and matches, K3 once a step.
 RP_JAX = {"bootstrap_frame": 0, "ate_pct": 2.3913}
 RP_ATE_PCT_FLOOR = 2.0
-MONO_FP_SYNCS_PER_CHUNK = 66  # the mono full pipeline's, PERF.md section 5
+MONO_FP_SYNCS_PER_CHUNK = 66  # the mono full pipeline's before the small solvers' CUDA route, PERF.md section 5
+# Source files whose host syncs fail a phase: on CUDA tensors nullspace_vector,
+# the DLT's pose and the triangulation read nothing back to the host.
+SYNC_FREE_FILES = ("ops/linalg.py", "ops/lie.py", "ops/pnp.py", "ops/triangulation.py")
+# The DLT lowerings: a bench-width frame's 3D-2D pairs (valid pairs, of which
+# inliers, at 0.5 px noise) and RANSAC's minimal samples.
+LW_PAIRS, LW_INLIERS, LW_HYP, LW_NOISE_PX = 1000, 400, N_HYP, 0.5
+LW_REFIT_ALIGN_MIN = 1 - 1e-4  # |<v_cuda, v_cpu>| of the refit's nullvector
+LW_REFIT_R_ATOL, LW_REFIT_T_ATOL = 1e-3, 1e-2  # the refit's pose, CUDA route against the CPU route
 
 
 def log(msg: str) -> None:
@@ -510,7 +536,8 @@ def count_syncs(torch, tag=None):
     """Count the host synchronisations inside the block by the port's
     source line that caused them (``torch.cuda.set_sync_debug_mode``);
     with ``tag``, each key is prefixed by ``tag(stack)``, the port's frames
-    of the sync's call stack."""
+    of the sync's call stack. Raises at the block's end if a sync came from
+    one of SYNC_FREE_FILES."""
     sync_at = collections.Counter()
 
     def note_sync(message, *args, **kwargs):
@@ -529,6 +556,9 @@ def count_syncs(torch, tag=None):
         finally:
             torch.cuda.set_sync_debug_mode("default")
             warnings.showwarning = shown
+    bad = {k: n for k, n in sync_at.items() if any(f in k for f in SYNC_FREE_FILES)}
+    if bad:
+        raise AssertionError(f"host syncs from {SYNC_FREE_FILES}: {bad}")
 
 
 def make_world_frames(render_mod, np, seed: int = 0, depths: bool = False):
@@ -1024,6 +1054,102 @@ def timed_fps(step, state, frames, n_seq: int) -> float:
         state, out = step(state, frames[i % len(frames)])
     float(out.T_w2c.flatten()[0])
     return n_seq * MS_STEPS / (time.perf_counter() - t0)
+
+
+def run_lowerings(torch, np, dev, K) -> dict:
+    """The DLT's small solvers on the card against the CPU: one bench-width
+    frame's 3D-2D pairs (LW_PAIRS valid pairs at 5-60 m, LW_INLIERS of them
+    true at LW_NOISE_PX, the rest uniform over the image), RANSAC's LW_HYP
+    minimal samples of 6 pairs (half from the inliers, half from every
+    pair) and an LO-style refit (``pnp_dlt`` weighted by the inliers).
+    ``pnp_dlt`` on CUDA tensors takes the CUDA route
+    (``smallest_eigvec_psd``, ``det3x3``, ``project_to_so3_newton``), on CPU
+    tensors the CPU route (``eigh``, the SVDs). Prints the nullvector
+    alignment |<v_cuda, v_cpu>| of the same Gram matrices (all-inlier
+    samples, mixed ones, the refit), the pose differences, and each route's
+    ms: the CUDA route's device and wall ms, the SVD route's on the card
+    (``eigh`` and the SVDs on CUDA tensors, as before) and the CPU route's
+    wall ms. Fails on a non-finite or improper rotation, a host sync in the
+    CUDA route, or a refit off the CPU route's beyond
+    LW_REFIT_ALIGN_MIN / LW_REFIT_R_ATOL / LW_REFIT_T_ATOL."""
+    from visual_slam_tpu_torch.ops import lie, linalg, pnp
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(17)
+    f = float(K[0, 0])
+    R = lie.so3_exp(torch.tensor([0.01, -0.02, 0.005])).numpy()
+    t = np.array([0.1, -0.05, 0.6], np.float32)
+    X = np.stack([rng.uniform(-20, 20, LW_PAIRS), rng.uniform(-3, 3, LW_PAIRS), rng.uniform(5, 60, LW_PAIRS)], 1)
+    pc = X @ R.T + t
+    xy = pc[:, :2] / pc[:, 2:3] + rng.normal(0, LW_NOISE_PX / f, (LW_PAIRS, 2))
+    out = np.arange(LW_PAIRS) >= LW_INLIERS
+    xy[out] = np.stack([rng.uniform(-W / 2, W / 2, out.sum()), rng.uniform(-H / 2, H / 2, out.sum())], 1) / f
+    X, xy = X.astype(np.float32), xy.astype(np.float32)
+    # Half the samples from the inliers (those that win RANSAC's argmin), half from every pair.
+    idx = np.stack([rng.choice(LW_INLIERS if h % 2 else LW_PAIRS, 6, replace=False) for h in range(LW_HYP)])
+    clean = (idx < LW_INLIERS).all(1)
+    w_fit = (~out).astype(np.float32)
+    problems = {"minimal": (X[idx], xy[idx], np.ones(idx.shape, np.float32)), "refit": (X, xy, w_fit)}
+    report = {"clean_samples": int(clean.sum())}
+    for name, (Xp, xyp, wp) in problems.items():
+        cpu = [torch.from_numpy(a) for a in (Xp, xyp, wp)]
+        gpu = [a.to(dev) for a in cpu]
+        R_c, t_c = pnp.pnp_dlt(*cpu)
+        with count_syncs(torch) as syncs:
+            R_g, t_g = pnp.pnp_dlt(*gpu)
+            torch.cuda.synchronize()
+        R_g, t_g = R_g.cpu().numpy(), t_g.cpu().numpy()
+        R_c, t_c = R_c.numpy(), t_c.numpy()
+        # The same Gram matrix through both nullspace routes.
+        gram = pnp._dlt_gram(*cpu)
+        v_c = linalg.nullspace_vector(gram).numpy()
+        v_g = linalg.nullspace_vector(gram.to(dev)).cpu().numpy()
+        align = np.abs(np.sum(v_c * v_g, axis=-1)).reshape(-1)
+        dR = np.abs(R_g - R_c).reshape(-1, 9).max(1)
+        dt = np.abs(t_g - t_c).reshape(-1, 3).max(1)
+        det = np.linalg.det(R_g.reshape(-1, 3, 3))
+        ortho = np.abs(np.einsum("nji,njk->nik", R_g.reshape(-1, 3, 3), R_g.reshape(-1, 3, 3)) - np.eye(3)).max()
+        cuda_fn = lambda: pnp.pnp_dlt(*gpu)  # noqa: E731
+        svd_fn = lambda: pnp._dlt_pose_svd(*pnp_dlt_parts(torch, pnp, *gpu))  # noqa: E731
+        dms, gapless = device_ms(cuda_fn)
+        wall, _ = timed(cuda_fn)
+        svd_dms, _ = device_ms(svd_fn, n=20)
+        svd_wall, _ = timed(svd_fn)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            pnp.pnp_dlt(*cpu)
+        cpu_ms = (time.perf_counter() - t0) / 5 * 1e3
+        sel = {"minimal": {"clean": clean, "mixed": ~clean}, "refit": {"all": np.ones(1, bool)}}[name]
+        stats = {k: dict(align_min=float(align[m].min()), align_median=float(np.median(align[m])),
+                         R_diff_median=float(np.median(dR[m])), R_diff_max=float(dR[m].max()),
+                         t_diff_median=float(np.median(dt[m])), t_diff_max=float(dt[m].max()))
+                 for k, m in sel.items() if m.any()}
+        report[name] = dict(stats, cuda_device_ms=dms, cuda_gapless=gapless, cuda_wall_ms=wall,
+                            svd_on_card_device_ms=svd_dms, svd_on_card_wall_ms=svd_wall, cpu_route_ms=cpu_ms,
+                            cuda_syncs=sum(syncs.values()), det_min=float(det.min()), ortho_err=float(ortho))
+        log(f"DLT lowerings, {name} ({Xp.shape[:-1]}): {json.dumps(report[name])}")
+        if not (np.isfinite(R_g).all() and np.isfinite(t_g).all()) or det.min() < 0.99 or ortho > 1e-3:
+            raise AssertionError(f"DLT lowerings, {name}: a non-finite or improper rotation (det {det.min()}, "
+                                 f"|R^T R - I| {ortho})")
+        if syncs:
+            raise AssertionError(f"DLT lowerings, {name}: host syncs in the CUDA route {dict(syncs)}")
+    ref = report["refit"]["all"]
+    if ref["align_min"] < LW_REFIT_ALIGN_MIN or ref["R_diff_max"] > LW_REFIT_R_ATOL or \
+            ref["t_diff_max"] > LW_REFIT_T_ATOL:
+        raise AssertionError(f"DLT lowerings: the refit's CUDA route is off the CPU route's: {ref}")
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"DLT lowerings: {report['clean_samples']} of {LW_HYP} samples all inliers; phase "
+        f"{report['phase_s']:.1f} s")
+    return report
+
+
+def pnp_dlt_parts(torch, pnp, X, xy, w):
+    """``pnp_dlt``'s SVD route on any device (the CUDA tensors' route before
+    the closed forms): ``eigh``'s nullvector, split into ``_dlt_pose_svd``'s
+    (M, p4, points, weights)."""
+    _, vecs = torch.linalg.eigh(pnp._dlt_gram(X, xy, w))
+    P = vecs[..., :, 0].reshape(vecs.shape[:-2] + (3, 4))
+    return P[..., :, :3], P[..., :, 3], X, w
 
 
 def run_multiseq(torch, np, dev, render_mod) -> list[int]:
@@ -2170,12 +2296,15 @@ def run_stereo_pipeline(torch, np, dev, k1_batched, k1_levels, k2, k3) -> dict:
         raise AssertionError(f"stereo pipeline: pairs {boot}-{n_end - 1} should each have one pose")
     if not np.isfinite(Ts).all():
         raise AssertionError("stereo pipeline: non-finite poses in the trajectory")
-    if not ate_pct <= ate_max:
-        raise AssertionError(f"stereo pipeline: metric ATE {ate_pct:.3f} % of path above {ate_max} %")
     if not probe.minted or not sum(probe.minted):
         raise AssertionError(f"stereo pipeline: no device-minted slot ({probe.minted})")
     if launches != expected:
         raise AssertionError(f"stereo pipeline launches {launches} != {expected}")
+    if not ate_pct <= ate_max:
+        # Raised by main() after the later phases have run, so that this
+        # run's ATE does not hide their results.
+        report["gate_failed"] = f"stereo pipeline: metric ATE {ate_pct:.3f} % of path above {ate_max} %"
+        log(f"FAILED: {report['gate_failed']}")
     return report
 
 
@@ -2980,6 +3109,43 @@ def loop_pass(torch, np, slam, frames, T_gt, counters, name, start=0, warm_end=N
     return report
 
 
+def run_small_ring(torch, np, dev, counters):
+    """The small ring (test_compiled_slam_devpromo_loop_closing's world)
+    through ``CompiledSLAM`` on the card with a checkpoint after
+    SR_CHECKPOINT, then a new system resumed from it (the id counters reset
+    as in a new process) over the frames after it. Returns (the pass's
+    report, the resumed pass's, the restored keyframe and landmark
+    counts)."""
+    import shutil
+    import tempfile
+
+    import loop_pipeline_world as lpw
+
+    from visual_slam_tpu_torch.camera import PinholeCamera
+    from visual_slam_tpu_torch.config import Config
+    from visual_slam_tpu_torch.map import KeyFrame
+    from visual_slam_tpu_torch.map.frame import FrameBase
+    from visual_slam_tpu_torch.models import CompiledSLAM
+
+    frames, K, T_gt = lpw.small_ring_frames()
+    h, w = frames[0].shape
+    cam = PinholeCamera(width=w, height=h, K=K)
+    ckpt = Path(tempfile.mkdtemp(prefix="small_ckpt_"))
+    try:
+        small = loop_pass(torch, np, CompiledSLAM(cam, lpw.small_ring_config(Config), device=dev), frames, T_gt,
+                          counters, "small", save=(SR_CHECKPOINT, ckpt))
+        with FrameBase._ids_lock:
+            FrameBase._ids = itertools.count(0)
+        with KeyFrame._kf_ids_lock:
+            KeyFrame._kf_ids = itertools.count(0)
+        slam = CompiledSLAM.resume(ckpt, cam, device="cuda")
+        restored = (slam.map.num_keyframes(), slam.map.num_map_points())
+        small_res = loop_pass(torch, np, slam, frames, T_gt, counters, "small_resume", start=SR_CHECKPOINT + 1)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return small, small_res, restored
+
+
 def run_loop_pipeline(torch, np, dev, counters):
     """bench_loop_pipeline's deployment through the port's entry points, on
     the card: the 200-frame KITTI-width ring with loop closing on (saving a
@@ -3049,14 +3215,10 @@ def run_loop_pipeline(torch, np, dev, counters):
             f"{on['saved_landmarks']}), every feature block on the card {on_features_on_card}")
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    small = None
+    small = small_res = None
     if LP_JAX["on_closures"] == 0:
-        small_frames, K_s, T_s = lpw.small_ring_frames()
-        h, w = small_frames[0].shape
-        small = loop_pass(torch, np, CompiledSLAM(PinholeCamera(width=w, height=h, K=K_s),
-                                                  lpw.small_ring_config(Config), device=dev),
-                          small_frames, T_s, counters, "small")
-        total = [a + b for a, b in zip(total, small["launches_k1_k5"])]
+        small, small_res, small_restored = run_small_ring(torch, np, dev, counters)
+        total = [a + b + c for a, b, c in zip(total, small["launches_k1_k5"], small_res["launches_k1_k5"])]
     # The heavy boundary's modes on the ring, loop closing on: async
     # boundaries at their default gates, then the sparse landmark-major BA
     # (sparse_obs="auto": every solve of this configuration, whose pose
@@ -3119,12 +3281,31 @@ def run_loop_pipeline(torch, np, dev, counters):
         fails.append(f"resume: restored {restored}, saved {(on['saved_keyframes'], on['saved_landmarks'])}")
     if not on_features_on_card:
         fails.append("resume: a restored feature block is not on the card")
-    if any(c["frame"] > LP_CHECKPOINT for c in on["closures"]) and not res["closures"]:
-        fails.append("resume: no closure after resuming, where the uninterrupted on pass closed after the checkpoint")
+    # A closure after resuming, on each ring whose uninterrupted pass closed
+    # after its checkpoint; at least one ring must be held to it.
+    resumed = [(on, res, LP_CHECKPOINT)] + ([] if small is None else [(small, small_res, SR_CHECKPOINT)])
+    held = [(a, b) for a, b, ck in resumed if any(c["frame"] > ck for c in a["closures"])]
+    for a, b in held:
+        if not b["closures"]:
+            fails.append(f"{b['run']}: no closure after resuming, where the uninterrupted pass closed after the "
+                         f"checkpoint")
+    if not held:
+        fails.append("resume: neither uninterrupted pass closed after its checkpoint, so no resumed pass is held to "
+                     "a closure")
+    if small_res is not None:
+        # No ATE bound: the restored poses keep their saved values while the
+        # closure after resuming moves the map, so the whole trajectory's ATE
+        # is not the uninterrupted pass's.
+        if small_res["lost"] or small_res["state"] != "OK":
+            fails.append(f"small_resume: {small_res['lost']} LOST frames, state {small_res['state']}")
+        if small_restored != (small["saved_keyframes"], small["saved_landmarks"]):
+            fails.append(f"small_resume: restored {small_restored}, saved "
+                         f"{(small['saved_keyframes'], small['saved_landmarks'])}")
     log(f"loop pipeline: ATE on {on['ate_pct_of_path']:.3f} % (gate {on_max:.3f}), off {off['ate_pct_of_path']:.3f} % "
         f"(gate {off_max:.3f}), resumed {res['ate_pct_of_path']:.3f} % (gate {res_max:.3f}); FPS on {on['fps']:.2f}, "
         f"off {off['fps']:.2f}, resumed {res['fps']:.2f}; closures on {len(on['closures'])}, resumed "
-        f"{len(res['closures'])}, small ring {None if small is None else len(small['closures'])}; launches K1-K5 "
+        f"{len(res['closures'])}, small ring {None if small is None else len(small['closures'])}, small ring resumed "
+        f"after frame {SR_CHECKPOINT} {None if small_res is None else len(small_res['closures'])}; launches K1-K5 "
         f"{total}")
     for mode, r in modes.items():
         lim = max(2 * LP_JAX[f"{mode}_ate_pct"], LP_ATE_PCT_FLOOR)
@@ -3351,7 +3532,7 @@ def main() -> int:
         raise AssertionError(f"first chunk off ground truth: R {err_R[:CHUNK].max()} t {err_t[:CHUNK].max()}")
 
     # Host synchronisations inside one step, by source line of the port
-    # (informational: linalg.eigh/svd read their error status back).
+    # (none may come from the small solvers' files).
     s = make_state()
     torch.cuda.synchronize()
     with count_syncs(torch) as sync_at:
@@ -3393,6 +3574,8 @@ def main() -> int:
     if d_R > R_ATOL or d_t > T_ATOL:
         raise AssertionError("CUDA step disagrees with the CPU step on frame 1")
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    run_lowerings(torch, np, dev, K)
+    elapsed("the DLT lowerings")
 
     # The batched VO step: MS_B sequences in one step, counted on its own.
     multiseq_launches = run_multiseq(torch, np, dev, render_mod)
@@ -3468,6 +3651,8 @@ def main() -> int:
 
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
+    if sp.get("gate_failed"):
+        raise AssertionError(sp["gate_failed"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

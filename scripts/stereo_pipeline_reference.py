@@ -27,6 +27,15 @@ the LOST pairs, the final state, and ``stereo_pipeline_world.Probe``'s
 counts (device-minted slots per promotion, double mints, BA solves over
 the landmark cap, the largest map). The JAX package's line is the
 reference ``chip_smoke.py``'s stereo pipeline gates are set from.
+
+With ``--dump`` the line also carries ``pairs``, pairs 13-16 as the
+self-promoting chunk tracked them (``stereo_pipeline_world.ChunkTrace``):
+the PnP inliers, the reference-block matches, the guided pairs, the
+landmarks of the reference block each pair tracked against, the valid
+arena slots, the promotion and its minted slots, and the camera-centre
+error of the tracked pose; the npz beside it holds every pair's row and,
+for the chunk holding pair 16, the reference block and the arena as the
+chunk received them.
 """
 from __future__ import annotations
 
@@ -103,9 +112,12 @@ def bench_run(args, spw, CompiledSLAM, PinholeCamera, Config, ate_rmse, kw, left
     if seed is not None:
         reseed_step(slam, seed)
     probe = spw.Probe(slam)
+    trace = spw.ChunkTrace(slam, Ts_gt) if args.dump else None
     states = {}
 
     def track(k):
+        if trace is not None:
+            trace.pair = k
         states[k] = slam.track([lefts[k], rights[k]], timestamp=k * spw.DT)["state"]
 
     t0 = time.perf_counter()
@@ -137,7 +149,9 @@ def bench_run(args, spw, CompiledSLAM, PinholeCamera, Config, ate_rmse, kw, left
             kfs = slam.map.get_keyframes()
             np.savez(Path(args.dump) / f"{args.impl}_{args.device if args.impl == 'torch' else 'cpu'}_seed{seed}.npz",
                      ts=ts, T_w2c=Ts, T_gt=Ts_gt, kf_ts=[kf.timestamp for kf in kfs],
-                     kf_T_w2c=np.stack([kf.T_w2c for kf in kfs]))
+                     kf_T_w2c=np.stack([kf.T_w2c for kf in kfs]), pair_rows=json.dumps(trace.rows),
+                     **trace.blocks)
+            line["pairs"] = {k: trace.rows[k] for k in spw.F7_PAIRS if k in trace.rows}
         line.update(stereo_pipeline_fps=fps, stereo_pipeline_ate_pct_of_path_metric=pct, ate_rmse_m=rmse,
                     path_m=path, ate_scale_aligned_m=rmse_sim, fitted_scale=scale, frames_timed=n_end - i,
                     poses=len(ts), keyframe_centre_err_m=kf_err)

@@ -214,3 +214,75 @@ class Probe:
                 "minted_total": int(sum(self.minted)), "double_mints": self.double_mints,
                 "ba_cap_hits": self.cap_hits, "largest_solve_landmarks": self.largest_solve,
                 "largest_map": self.largest_map}
+
+
+F7_PAIRS = (13, 14, 15, 16)  # the pairs before and at the keyframe where ROADMAP F7's failed runs break
+
+
+def _host(x) -> np.ndarray:
+    """A tensor or array of either package as a numpy array."""
+    return np.asarray(x.detach().cpu()) if hasattr(x, "detach") else np.asarray(x)
+
+
+class ChunkTrace:
+    """Wraps ``slam._chunk`` (the self-promoting chunk; same arguments and
+    outputs in both packages) to record, per tracked pair: the PnP inliers,
+    the matches to the reference block, the guided arena pairs, the
+    landmarks of the reference block the pair tracked against (the block at
+    the chunk's start, or the one the chunk's last promotion before the pair
+    made), the valid arena slots, whether the pair promoted and the slots it
+    minted, and the camera-centre error of its tracked pose in the world the
+    chunk tracked in. ``blocks`` keeps the reference block and arena the
+    chunk holding ``F7_PAIRS[-1]`` received. The caller sets ``pair`` to the
+    pair it is about to track; a chunk runs at its last pair. On the port,
+    whose step solves each pose in ``solve_pose``, a row also holds the
+    inliers the step's constant-velocity prediction held (``pred_inliers``),
+    one host read a pair."""
+
+    def __init__(self, slam, Ts_gt):
+        self.pair = 0
+        self.rows: dict[int, dict] = {}
+        self.blocks: dict[str, np.ndarray] = {}
+        self.pred: list[int] = []
+        chunk0 = slam._chunk
+        step = getattr(slam, "_step", None)
+        if hasattr(step, "solve_pose"):
+            from visual_slam_tpu_torch.ops.pnp import _reproj_err2
+
+            solve0 = step.solve_pose
+
+            def solve_pose(pts3d, xy_norm, pair_valid, T_pred, *a, **kw):
+                err = _reproj_err2(T_pred[..., :3, :3], T_pred[..., :3, 3], pts3d, xy_norm)
+                self.pred.append(int(((err < step.thresh * step.thresh) & pair_valid).sum()))
+                return solve0(pts3d, xy_norm, pair_valid, T_pred, *a, **kw)
+
+            step.solve_pose = solve_pose
+
+        def chunk(state, *a, **kw):
+            n = int(kw.get("n_valid") or len(a[2]))
+            first = self.pair - n + 1
+            block = int(_host(state.ref_has_landmark).sum())
+            arena = int(_host(state.lm_valid).sum()) if state.lm_valid is not None else 0
+            if first <= F7_PAIRS[-1] <= self.pair:
+                self.blocks = {"ref_landmarks": _host(state.ref_landmarks), "ref_has": _host(state.ref_has_landmark),
+                               "lm_pos": _host(state.lm_pos), "lm_valid": _host(state.lm_valid)}
+            start = len(self.pred)
+            res = chunk0(state, *a, **kw)
+            pred = self.pred[start:]
+            outs, recs = res[3], res[4]
+            inl, matches = _host(outs.n_inliers), _host(outs.n_matches)
+            guided, T = _host(outs.guided_valid).sum(-1), _host(outs.T_w2c)
+            promoted, has, tri = _host(recs.promoted), _host(recs.ref_has).sum(-1), _host(recs.ref_tri).sum(-1)
+            for j in range(n):
+                k = first + j
+                err = np.linalg.norm(camera_centre(np.asarray(T[j], np.float64)) - camera_centre(Ts_gt[k]))
+                self.rows[k] = {"inliers": int(inl[j]), "ref_matches": int(matches[j]), "guided_pairs": int(guided[j]),
+                                "ref_block_landmarks": block, "arena_valid": arena, "promoted": bool(promoted[j]),
+                                "minted": int(tri[j]) if promoted[j] else 0, "centre_err_m": round(float(err), 3)}
+                if j < len(pred):
+                    self.rows[k]["pred_inliers"] = pred[j]
+                if promoted[j]:
+                    block = int(has[j])
+            return res
+
+        slam._chunk = chunk

@@ -73,3 +73,34 @@ def test_log_exp_jacobian_near_identity_matches_jax(offset):
     J_t = torch.func.jacfwd(f_t)(torch.zeros(24)).numpy()
     assert np.isfinite(J_t).all()
     np.testing.assert_allclose(J_t, J_j, atol=1e-4)
+
+
+def test_det3x3_matches_jax():
+    """The closed-form determinant against JAX's and numpy's
+    (tests/test_lie.py's rtol 2e-4), batched and unbatched."""
+    rng = np.random.default_rng(7)
+    A = rng.normal(0, 2, (32, 3, 3)).astype(np.float32)
+    det_t = tlie.det3x3(torch.from_numpy(A)).numpy()
+    np.testing.assert_allclose(det_t, np.asarray(jlie.det3x3(jnp.asarray(A))), rtol=2e-4, atol=1e-5)
+    np.testing.assert_allclose(det_t, np.linalg.det(A), rtol=2e-4, atol=1e-5)
+    assert abs(float(tlie.det3x3(torch.from_numpy(A[0]))) - float(np.linalg.det(A[0]))) < 2e-4 * abs(float(np.linalg.det(A[0])))
+
+
+def test_project_to_so3_newton_matches_jax_and_svd():
+    """Newton's polar iteration on noisy near-rotations (the DLT-fit
+    regime) against JAX's and against the SVD projection (tests/test_lie.py's
+    5e-5); proper rotations. ``project_to_so3`` on CPU tensors stays the
+    SVD route."""
+    rng = np.random.default_rng(24)
+    Ms = []
+    for i in range(24):
+        R = np.asarray(jlie.so3_exp(jnp.asarray(rng.normal(0, 1, 3).astype(np.float32))))
+        Ms.append(rng.uniform(0.3, 3.0) * R + rng.normal(0, 0.05 * (i % 4), (3, 3)))
+    M = np.stack(Ms).astype(np.float32)
+    R_new = tlie.project_to_so3_newton(torch.from_numpy(M)).numpy()
+    np.testing.assert_allclose(R_new, np.asarray(jlie.project_to_so3_newton(jnp.asarray(M))), atol=1e-5)
+    R_svd = tlie.project_to_so3(torch.from_numpy(M)).numpy()
+    np.testing.assert_allclose(R_new, R_svd, atol=5e-5)
+    np.testing.assert_allclose(R_svd, np.asarray(jax.vmap(jlie.project_to_so3)(jnp.asarray(M))), atol=5e-5)
+    np.testing.assert_allclose(np.einsum("nij,nik->njk", R_new, R_new), np.tile(np.eye(3), (24, 1, 1)), atol=5e-5)
+    assert np.all(np.linalg.det(R_new) > 0.99)

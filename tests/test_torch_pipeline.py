@@ -133,3 +133,77 @@ def test_init_track_state_and_stereo_refused(setup):
     # The stereo step is ported; as in the JAX package it needs a positive baseline.
     with pytest.raises(ValueError, match="baseline"):
         tp.make_track_step(K, stereo=True, device="cpu")
+
+
+# ------------------------------------ the fallback at a degraded frame (ROADMAP F7)
+KF = 718.856  # a KITTI-width camera, as the stereo pipeline's world
+K_KITTI = np.array([[KF, 0, 620.0], [0, KF, 188.0], [0, 0, 1.0]], np.float32)
+
+
+def _degraded_frame(seed: int, stereo: bool, n_in: int = 30, n_out: int = 150):
+    """A frame 2.4 m ahead of a reference block whose landmarks mostly
+    carry depth errors (15-50 %, either sign), as a stereo block four pairs
+    old does: ``n_in`` exact landmarks, ``n_out`` displaced ones, the
+    observations from the true pose with 0.3 px noise, and the true pose
+    as the prediction. With ``stereo``, half the points carry a measured
+    depth (1 % noise). Returns (pts3d, xy_norm, valid, T_pred, depth)."""
+    rng = np.random.default_rng(seed)
+    n = n_in + n_out
+    Z = rng.uniform(6.0, 40.0, n)
+    P = np.stack([rng.uniform(-0.6, 0.6, n) * (Z - 2.4), rng.uniform(-0.2, 0.2, n) * (Z - 2.4), Z], 1)
+    Pm = P.copy()
+    Pm[n_in:] *= 1.0 + (rng.choice([-1.0, 1.0], n_out) * rng.uniform(0.15, 0.5, n_out))[:, None]
+    T = np.eye(4)
+    T[2, 3] = -2.4
+    pc = P + T[:3, 3]
+    xy = pc[:, :2] / pc[:, 2:] + rng.normal(0, 0.3 / KF, (n, 2))
+    depth = None
+    if stereo:
+        z = pc[:, 2] * (1 + rng.normal(0, 0.01, n))
+        depth = (torch.tensor(z, dtype=torch.float32), torch.tensor(rng.random(n) < 0.5), 0.54)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    return f32(Pm), f32(xy), torch.ones(n, dtype=torch.bool), f32(T), depth
+
+
+@pytest.mark.parametrize("stereo", [False, True])
+def test_solve_keeps_the_predictions_inliers(stereo):
+    """A degraded frame (ROADMAP F7: 30 of 180 pairs inliers, the rest
+    landmarks with depth errors), over six worlds: the port's solve returns
+    a pose holding at least the inliers its prediction holds, in every
+    world. The JAX step's fallback, Gauss-Newton from the prediction over
+    every pair (its ``refine_pose_gn`` or ``refine_pose_gn_depth``), ends
+    with fewer inliers than its start in some of them, and so does the
+    port's RANSAC. Each RANSAC draws only displaced landmarks: at 1 in 6
+    pairs a clean 6-point sample is a 1e-5 draw."""
+    from visual_slam_tpu.ops import pnp as jpnp
+    from visual_slam_tpu_torch.ops.epipolar import _sample_minimal_sets
+    from visual_slam_tpu_torch.ops.pnp import _reproj_err2, ransac_pnp
+
+    step = tp.make_track_step(K_KITTI, device="cpu", pnp_hypotheses=128)
+    t2 = step.thresh * step.thresh
+    jax_lost = ransac_lost = 0
+    for seed in range(6):
+        P, xy, valid, T, depth = _degraded_frame(seed, stereo)
+        idx = 30 + _sample_minimal_sets(torch.Generator().manual_seed(seed), valid[30:], 128, 6)
+
+        def n_inl(R, t):
+            return int(((_reproj_err2(torch.tensor(np.array(R)), torch.tensor(np.array(t)), P, xy) < t2)
+                        & valid).sum())
+
+        n_pred = n_inl(T[:3, :3], T[:3, 3])
+        T_s, inl = step.solve_pose(P, xy, valid, T, None, sample_idx=idx, depth=depth)
+        assert int(inl.sum()) >= n_pred, (seed, int(inl.sum()), n_pred)
+        assert int(inl.sum()) == n_inl(T_s[:3, :3], T_s[:3, 3])
+        j = [jnp.asarray(a.numpy()) for a in (T[:3, :3], T[:3, 3], P, xy, valid.to(torch.float32))]
+        if stereo:
+            z, z_ok, b = depth
+            R_j, t_j = jpnp.refine_pose_gn_depth(*j, jnp.asarray(z.numpy()), jnp.asarray(z_ok.numpy(), jnp.float32),
+                                                 b, iters=8, huber=float(step.thresh))
+            d = {"z_meas": z, "z_valid": z_ok, "baseline": b}
+        else:
+            R_j, t_j = jpnp.refine_pose_gn(*j, iters=8, huber=float(step.thresh))
+            d = {}
+        jax_lost += n_inl(R_j, t_j) < n_pred
+        res = ransac_pnp(P, xy, valid, None, n_hyp=128, thresh=step.thresh, sample_idx=idx, **d)
+        ransac_lost += int(res["n_inliers"]) < n_pred
+    assert jax_lost >= 1 and ransac_lost >= 1, (jax_lost, ransac_lost)

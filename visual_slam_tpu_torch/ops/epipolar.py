@@ -8,7 +8,8 @@ hypothesis (LO-RANSAC), Sampson scoring, argmin. The JAX version ``vmap``s
 over hypotheses; here the functions take leading batch dimensions. The
 minimal sets come from a ``torch.Generator`` or are given as
 ``sample_idx`` (the tests feed the JAX sampler's draws). Nothing reads a
-value back to the host apart from ``eigh``'s and ``svd``'s error status.
+value back to the host apart from the rank-2 and essential ``svd``'s error
+status (and, on CPU tensors only, ``nullspace_vector``'s ``eigh``).
 """
 from __future__ import annotations
 

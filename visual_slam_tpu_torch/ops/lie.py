@@ -153,6 +153,40 @@ def project_to_so3(M: torch.Tensor) -> torch.Tensor:
     return (U * D[..., None, :]) @ Vt
 
 
+# The closed forms below are the JAX package's lowering of the 3x3 solves
+# (its det3x3 and project_to_so3_newton, whose inverse is JAX's inv3x3 with
+# its guard): elementwise, so on a CUDA tensor they read nothing back to the
+# host, where cuSOLVER's SVD checks its error status on every call. The
+# Newton step takes the cofactor matrix C (row i = cross of the other two
+# rows, so C = det(M) M^-T) in one ``cross`` of the rolled rows, and the
+# determinant as row 0 of M against row 0 of C: a few launches a call in
+# place of 27 scalar expressions.
+def _cofactors(M: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.cross(M.roll(-1, dims=-2), M.roll(-2, dims=-2))
+
+
+def det3x3(M: torch.Tensor) -> torch.Tensor:
+    """Closed-form determinant over (..., 3, 3): the cofactor expansion
+    along row 0."""
+    return torch.linalg.vecdot(M[..., 0, :], torch.linalg.cross(M[..., 1, :], M[..., 2, :]))
+
+
+def project_to_so3_newton(M: torch.Tensor, iters: int = 5) -> torch.Tensor:
+    """Nearest rotation to M (det M > 0) by Higham-scaled Newton polar
+    iteration, X <- (g X + X^-T / g) / 2 with g = |det X|^(-1/3), as the
+    JAX function. det M <= 0 converges to an improper factor: callers that
+    need the nearest rotation of such an input take ``project_to_so3``."""
+    X = M
+    for _ in range(iters):
+        C = _cofactors(X)
+        det = torch.linalg.vecdot(X[..., 0, :], C[..., 0, :])
+        g = (torch.abs(det) + 1e-12) ** (-1.0 / 3.0)
+        # X^-T = C / det, guarded as JAX's inv3x3: |det| < 1e-12 divides by 1e-12
+        inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12, 1e-12, det)
+        X = 0.5 * (g[..., None, None] * X + C * (inv_det / g)[..., None, None])
+    return X
+
+
 def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     """Closed-form rigid-transform inverse: [R t]^-1 = [R^T, -R^T t]."""
     Rt = T[..., :3, :3].transpose(-1, -2)

@@ -4,7 +4,9 @@ hypotheses + Gauss-Newton SE(3) refinement (port of ``visual_slam_tpu.ops.pnp``)
 The JAX version ``vmap``s over hypotheses; here every function takes
 leading batch dimensions instead, so the 128 hypotheses are one batch, and
 ``ransac_pnp`` takes a leading batch of problems (the batched VO step's
-sequences) beside them. No function reads a value back to the host.
+sequences) beside them. On CUDA tensors no function reads a value back to
+the host: the DLT's nullvector comes from ``nullspace_vector``'s direct
+method and its pose from the closed forms (``_dlt_pose_closed``).
 
 The stereo and RGB-D variants (``refine_pose_gn_depth``,
 ``ransac_pnp_depth``) add the normalized-disparity residual of each point
@@ -18,7 +20,7 @@ import torch
 
 from .batch import take_rows
 from .epipolar import _sample_minimal_sets
-from .lie import make_T, project_to_so3, so3_exp
+from .lie import det3x3, make_T, project_to_so3, project_to_so3_newton, so3_exp
 from .linalg import nullspace_vector
 
 _EPS = 1e-9
@@ -31,6 +33,14 @@ def pnp_dlt(
     observations with (..., N) weights; needs >= 6 effective points.
     Returns (R (..., 3, 3), t (..., 3)) world -> camera, cheirality fixed
     so the weighted mean depth is positive."""
+    p = nullspace_vector(_dlt_gram(pts3d, xy, w))
+    P = p.reshape(p.shape[:-1] + (3, 4))
+    return _dlt_pose(P[..., :, :3], P[..., :, 3], pts3d, w)
+
+
+def _dlt_gram(pts3d: torch.Tensor, xy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The DLT's weighted normal matrix A^T W A (..., 12, 12): two rows a
+    point, [X Y Z 1 0 0 0 0 -uX -uY -uZ -u] and [0 0 0 0 X Y Z 1 -vX -vY -vZ -v]."""
     X, Y, Z = pts3d[..., 0], pts3d[..., 1], pts3d[..., 2]
     u, v = xy[..., 0], xy[..., 1]
     one = torch.ones_like(X)
@@ -39,21 +49,56 @@ def pnp_dlt(
     r2 = torch.stack([zero, zero, zero, zero, X, Y, Z, one, -v * X, -v * Y, -v * Z, -v], dim=-1)
     A = torch.cat([r1, r2], dim=-2)  # (..., 2N, 12)
     ww = torch.cat([w, w], dim=-1)
-    AtA = (A * ww[..., None]).transpose(-1, -2) @ A
-    p = nullspace_vector(AtA)
-    P = p.reshape(p.shape[:-1] + (3, 4))
-    M = P[..., :, :3]
+    return (A * ww[..., None]).transpose(-1, -2) @ A
+
+
+def _dlt_pose(M, p4, pts3d, w):
+    """The DLT fit's pose from its projection matrix [M | p4]: the SVD route
+    on CPU tensors (the JAX function's, bit for bit as before), the closed
+    forms on CUDA tensors, where an SVD reads its error status back to the
+    host."""
+    return (_dlt_pose_closed if M.is_cuda else _dlt_pose_svd)(M, p4, pts3d, w)
+
+
+def _dlt_pose_svd(M, p4, pts3d, w):
+    """Scale by the geometric mean of M's singular values and the sign of
+    its determinant, the SVD projection onto SO(3), and the cheirality flip
+    re-projected by SVD (as the JAX function)."""
     s = torch.linalg.svdvals(M)
     lam = torch.clamp(torch.exp(torch.mean(torch.log(torch.clamp(s, min=_EPS)), dim=-1)), min=_EPS)
     sign = torch.sign(torch.linalg.det(M))
     sign = torch.where(sign == 0, 1.0, sign)
     scale = (lam * sign)[..., None]
     R = project_to_so3(M / scale[..., None])
-    t = P[..., :, 3] / scale
+    t = p4 / scale
     z = (pts3d @ R[..., 2, :, None])[..., 0] + t[..., 2:3]
     flip = torch.sum(z * w, dim=-1) < 0
     R = torch.where(flip[..., None, None], -R, R)
     R = project_to_so3(R)
+    t = torch.where(flip[..., None], -t, t)
+    return R, t
+
+
+def _dlt_pose_closed(M, p4, pts3d, w):
+    """``_dlt_pose_svd`` without an SVD (a departure from the JAX function,
+    which keeps its SVDs on every backend): the geometric mean of the
+    singular values is |det M|^(1/3) exactly, and M / (lam sign) has det 1,
+    so Newton's polar iteration projects it. The cheirality flip's -R is
+    improper, and every rotation R H with H a half turn is nearest to it
+    (its singular values are all 1; the SVD returns one of them
+    arbitrarily). This route takes the half turn about the camera's x axis,
+    diag(1, -1, -1) R, whose third row is -R's: the depths the flip made
+    positive stay positive."""
+    det = det3x3(M)
+    lam = torch.clamp(torch.abs(det) ** (1.0 / 3.0), min=_EPS)
+    sign = torch.sign(det)
+    sign = torch.where(sign == 0, 1.0, sign)
+    scale = (lam * sign)[..., None]
+    R = project_to_so3_newton(M / scale[..., None])
+    t = p4 / scale
+    z = (pts3d @ R[..., 2, :, None])[..., 0] + t[..., 2:3]
+    flip = torch.sum(z * w, dim=-1) < 0
+    R = torch.where(flip[..., None, None], torch.cat([R[..., :1, :], -R[..., 1:, :]], dim=-2), R)
     t = torch.where(flip[..., None], -t, t)
     return R, t
 

@@ -2,9 +2,9 @@
 (port of ``visual_slam_tpu.ops.triangulation``).
 
 Everything is fixed-shape: callers pass validity masks instead of
-shrinking arrays, so the chain runs the same launches every call and reads
-nothing back to the host (``nullspace_vector``'s ``eigh`` aside, which
-reads its error status).
+shrinking arrays, so the chain runs the same launches every call, and on
+CUDA tensors it reads nothing back to the host (``nullspace_vector`` takes
+its direct method there).
 """
 from __future__ import annotations
 

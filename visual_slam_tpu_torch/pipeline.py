@@ -157,27 +157,51 @@ class TrackStep(nn.Module):
         )
 
     def solve_pose(self, pts3d, xy_norm, pair_valid, T_pred, gen, sample_idx=None, depth=None):
-        """RANSAC-PnP over the 3D-2D pairs, and a robust Gauss-Newton from the
-        predicted pose that wins where it holds more inliers. Returns
-        (T_w2c (4, 4), inliers (N,)), on the device; with a leading B on
-        every input (and B generators) each output carries it. ``depth``
+        """RANSAC-PnP over the 3D-2D pairs, and a fallback from the
+        constant-velocity prediction that wins where it holds more inliers.
+        Returns (T_w2c (4, 4), inliers (N,)), on the device; with a leading B
+        on every input (and B generators) each output carries it. ``depth``
         (kp_z (N,), kp_z_valid (N,), baseline) adds the depth residual to
-        both solves (``ransac_pnp_depth``, ``refine_pose_gn_depth``)."""
+        every solve (``ransac_pnp_depth``, ``refine_pose_gn_depth``).
+
+        The fallback is the JAX step's, a robust Gauss-Newton from the
+        prediction over every pair, or, where it holds more inliers, the
+        prediction polished as ``ransac_pnp`` polishes its winner:
+        Gauss-Newton on the prediction's own inliers, kept only where it
+        loses none of them. The second candidate departs from JAX (ROADMAP
+        F7): where few pairs are inliers, the outliers pull the first off a
+        prediction that held more inliers than either solve returns."""
         d_ransac = d_gn = {}
         if depth is not None:
             z, z_ok, b = depth
             d_ransac = {"z_meas": z, "z_valid": z_ok, "baseline": b}
             d_gn = {"z_meas": z, "w_z": z_ok.to(torch.float32), "baseline": b}
+        t2 = self.thresh * self.thresh
+
+        def scored(R, t):
+            return R, t, (_reproj_err2(R, t, pts3d, xy_norm) < t2) & pair_valid
+
+        def gn(start, w):
+            return scored(*refine_pose_gn(start[0], start[1], pts3d, xy_norm, w.to(torch.float32), iters=8,
+                                          huber=self.thresh, **d_gn))
+
+        def pick(take, a, b):
+            """Candidate ``a`` (R, t, inliers) where ``take``, else ``b``."""
+            take = take[..., None]
+            return (torch.where(take[..., None], a[0], b[0]), torch.where(take, a[1], b[1]),
+                    torch.where(take, a[2], b[2]))
+
         with record_function("ransac_pnp"):
             res = ransac_pnp(pts3d, xy_norm, pair_valid, gen, n_hyp=self.pnp_hypotheses, thresh=self.thresh,
                              sample_idx=sample_idx, **d_ransac)
         with record_function("fallback_gn"):
-            R_f, t_f = refine_pose_gn(T_pred[..., :3, :3], T_pred[..., :3, 3], pts3d, xy_norm,
-                                      pair_valid.to(torch.float32), iters=8, huber=self.thresh, **d_gn)
-        inl_f = (_reproj_err2(R_f, t_f, pts3d, xy_norm) < self.thresh * self.thresh) & pair_valid
-        use_fallback = (inl_f.sum(-1) > res["n_inliers"])[..., None]
-        T = make_T(torch.where(use_fallback[..., None], R_f, res["R"]), torch.where(use_fallback, t_f, res["t"]))
-        return T, torch.where(use_fallback, inl_f, res["inliers"])
+            pred = scored(T_pred[..., :3, :3], T_pred[..., :3, 3])
+            every = gn(pred, pair_valid)
+            polished = gn(pred, pred[2])
+            polished = pick(polished[2].sum(-1) >= pred[2].sum(-1), polished, pred)
+            fallback = pick(polished[2].sum(-1) > every[2].sum(-1), polished, every)
+        R, t, inliers = pick(fallback[2].sum(-1) > res["n_inliers"], fallback, (res["R"], res["t"], res["inliers"]))
+        return make_T(R, t), inliers
 
     def detect_pair(self, img: torch.Tensor) -> tuple[Features, Features]:
         """Left and right features of a (*batch, 2, H, W) stereo input, both
