@@ -179,7 +179,34 @@
       (the stereo pairs with a KITTI P0/P1 calibration, the RGB-D frames
       with their depth maps through ``get_depth``); fails unless each ends
       OK, bootstraps on frame 0 and poses every frame.
-10. Loop pipeline (tests/loop_pipeline_world.py): bench_loop_pipeline's
+10. Feature families (``run_feature_families``, tests/facade_world.py's
+   FAMILIES), one JSON line per part and run:
+   a. detectors: Shi-Tomasi ORB, GradHist, Shi-Tomasi GradHist and DoG
+      SIFT on frame 0 of the deploy world (376x1240, 2000 features) on the
+      card and on the CPU: valid keypoints, the share at the same position
+      and octave, angle and descriptor agreement, ms a detect (median of
+      FF_DET_REPS synchronised calls), peak memory; fails below FF_TOL's
+      parity, or when K1 launches other than once a Shi-Tomasi ORB detect
+      (never for a float family);
+   b. IVF: tests/test_ann.py's construction at FF_IVF_ROWS rows and
+      FF_IVF_QUERIES queries: build and search ms (device and wall); fails
+      on a recall against the exact match (K2's plain version: K2 takes at
+      most 5800 train rows) below FF_IVF_RECALL_MIN, an invalid row
+      matched, or a search that differs from its CPU run;
+   c. facade: ``SLAM`` with the deploy settings and each family's detector
+      and matcher over the deploy world's first FAMILY_FRAMES frames at its
+      RANSAC seeds, each run classed as in 8a: FPS after the bootstrap,
+      host ms a frame by stage, keyframe ATE, keyframes, landmarks,
+      descriptor widths, K1-K4 launches, peak memory. Per family it fails
+      on more failed runs than the JAX package's CPU run (FF_JAX), a median
+      keyframe ATE of the clean runs above max(2 x JAX's, FF_ATE_PCT_FLOOR),
+      a float family with landmark descriptors other than 128 wide or any
+      K1-K4 launch, or Shi-Tomasi ORB launches that disagree with its
+      detects, matches and guided matches. A family that the JAX package
+      fails at every seed there (Shi-Tomasi ORB) runs
+      tests/test_float_family_slam.py's world and ``sift_config`` instead,
+      each run held to that test's assertions.
+11. Loop pipeline (tests/loop_pipeline_world.py): bench_loop_pipeline's
    deployment through ``CompiledSLAM`` on the card, one JSON line per run:
    the 200-frame ring at 376x1240 around 2400 sprites with noise and
    brightness drift, 2000 features, self-promoting chunks of 8, a heavy
@@ -213,13 +240,13 @@
    LP_JAX's comment's. K4 is then held exactly against its plain version on
    the arguments of the on pass's detect with the most real candidate
    blocks (its shortlist) and timed.
-11. Prints a JSON line of the kernels, then ``{"ok": true, "device": ...}``
+12. Prints a JSON line of the kernels, then ``{"ok": true, "device": ...}``
    as the last line. Any failure raises and exits nonzero.
 
 K5 has no caller in either package: only phase 3 launches it. The
 kernels' launch counts add up the tracking, stereo step, loop,
-full-pipeline, stereo pipeline, facade, stereo facade and loop pipeline
-phases; the batched rows' count the batched VO phase's batched steps, the
+full-pipeline, stereo pipeline, facade, stereo facade, feature-family (its
+detectors and facade runs) and loop pipeline phases; the batched rows' count the batched VO phase's batched steps, the
 B = 2 row's the stereo facade phases', the stereo step's and the stereo
 pipeline's pairs, the B = 8 row's the batched
 stereo step's, the RGB-D rows' the RGB-D facade phases' and the RGB-D
@@ -257,6 +284,9 @@ MIN_INLIERS = 20
 MOMENT_RTOL = 1e-5  # of sum |w * p|: the moments' f32 summation order differs
 REPS = 20  # host+device wall: synchronised reps
 DEVICE_REPS = 200  # device time: back-to-back calls between two CUDA events
+# A plain version's device time: it takes 0.3-56 ms a call and leaves host gaps (so device_ms runs its loop
+# twice), and 50 calls average it as well as 200; the 200 took about 45 s of the script's 1200 s limit.
+PLAIN_DEVICE_REPS = 50
 SLEEP_CYCLES_PER_S = 2.0e9  # torch.cuda._sleep's cycles per second, at or above the SM clock
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
@@ -335,6 +365,44 @@ STEREO_FRAMES, RGBD_FRAMES, DEPTH_PROCESSING_FRAMES = 48, 32, 16
 DEPTH_JAX = {"stereo": {"failed": 0, "median_pct": 0.788, "fused_clean": True, "kp_z_valid_frac": 0.3058},
              "rgbd": {"failed": 5, "median_pct": 1.236, "fused_clean": False, "kp_z_valid_frac": 0.9264}}
 DEPTH_PORT_CPU_FAILED = {"stereo": 0, "rgbd": 0}
+# Feature families (tests/facade_world.py's FAMILIES): the detectors on frame
+# 0 of the deploy world against the same detectors on the CPU, the IVF index,
+# and the host facade over the deploy world's first FAMILY_FRAMES frames per
+# family at its RANSAC seeds. FF_JAX is the JAX package's CPU run of those
+# facade runs (scripts/float_family_reference.py --impl jax): per family its
+# failed runs (LOST after the bootstrap, or a keyframe ATE above
+# FACADE_JUMP_PCT) and the median keyframe ATE (% of the path) of the clean
+# ones. DoG SIFT + L2 at seeds 13, 0, 1, 2: all clean, 2.110-2.383 % (11-12
+# keyframes, 651-885 landmarks); GradHist + L2 at 13, 0: both clean, 0.533
+# and 0.462 % (at seeds 1-5 one of five LOST); Shi-Tomasi ORB + Hamming at
+# 13, 0: both LOST (frames 19 and 25, keyframe ATE 20.5 and 19.2 %), so that
+# family runs tests/test_float_family_slam.py's world and sift_config instead
+# (JAX there: both seeds end OK with 7 keyframes and 258-288 landmarks, the
+# test's assertions; keyframe ATE 10.7 and 9.3 %, which the test does not
+# assert). Gates, fixed before the first run on the card: failed runs at most
+# JAX's, that median at most max(2 x JAX's, FF_ATE_PCT_FLOOR); on the e2e
+# world, every run passes the test's assertions; a float family keeps
+# 128-word landmark descriptors and launches none of K1-K4; Shi-Tomasi ORB
+# launches K1, K2 and K3 once per detect, brute match and guided match.
+FF_JAX = {"sift": {"failed": 0, "median_pct": 2.2971},
+          "gradhist": {"failed": 0, "median_pct": 0.4973},
+          "shi_tomasi_orb": {"failed": 2, "median_pct": None}}
+FF_ATE_PCT_FLOOR = 2.0
+FF_DET_REPS = 20  # synchronised detects a detector is timed over
+# Detector parity, card against CPU, on the shared keypoints (at least
+# FF_SHARE_MIN of the CPU's valid ones at the same position and octave): at
+# least FF_SHARE_MIN of them with the angle and the descriptor within the
+# family's tolerance (tests/test_torch_float_ops.py, tests/test_torch_sift.py),
+# the Shi-Tomasi ORB descriptors on at least FF_BIT_SHARE_MIN of the bits.
+FF_SHARE_MIN, FF_BIT_SHARE_MIN = 0.98, 0.99
+FF_TOL = {"shi_tomasi_orb": {"xy": 1e-3, "angle": 1e-4},
+          "gradhist": {"xy": 1e-3, "angle": 1e-4, "desc": 1e-4},
+          "shi_tomasi_gradhist": {"xy": 1e-3, "angle": 1e-4, "desc": 1e-4},
+          "sift": {"xy": 2e-3, "angle": 1e-2, "desc": 5e-3}}
+# IVF: tests/test_ann.py's construction at FlannMatcher's scale: random
+# 256-bit rows from seed 0 (the last 32 invalid), perturbed copies of valid
+# rows as queries, FlannMatcher's cluster count for the rows, 8 probes.
+FF_IVF_ROWS, FF_IVF_QUERIES, FF_IVF_CLUSTERS, FF_IVF_PROBES, FF_IVF_RECALL_MIN = 16384, 2000, 128, 8, 0.9
 # Host ms a frame in detect of the mono facade's deploy run at seed 13 on an
 # NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 5), printed beside the
 # stereo and RGB-D runs' own.
@@ -510,13 +578,14 @@ def bound(n_bytes: float, ops: dict[str, float]) -> dict:
 
 
 def kernel_row(name, source, replaces, fn, plain, err, work, library=None, library_note=None) -> dict:
-    """One row of the kernels JSON: device time (``device_ms``, events) and
-    host+device wall (``ms``, as in the rows of earlier versions) of the
-    kernel, of its plain version and, where one PyTorch call computes the
+    """One row of the kernels JSON: device time (``device_ms``, events, over
+    DEVICE_REPS calls of the kernel and PLAIN_DEVICE_REPS of the plain
+    version) and host+device wall (``ms``, as in the rows of earlier
+    versions) of the kernel, of its plain version and, where one PyTorch call computes the
     same function, the device time of that call; the bound and the share of
     it reached. ``work`` is ``bound()``'s dict for this call's inputs."""
     dev, gapless = device_ms(fn)
-    plain_dev, plain_gapless = device_ms(plain)
+    plain_dev, plain_gapless = device_ms(plain, n=PLAIN_DEVICE_REPS)
     host, plain_host = timed(fn), timed(plain)
     lib = device_ms(library)[0] if library is not None else None
     row = dict(name=name, route="cuda", source=source, replaces=replaces, max_abs_err=err, ms=host[0],
@@ -2578,6 +2647,7 @@ def facade_run(torch, np, dev, counters, frames, K, Ts_gt, cfg, threaded=False, 
            "secs_after_boot": dt}
     report = fw.summary(slam, res, Ts_gt, ate_rmse)
     report.update(ransac_seed=13 if ransac_seed is None else ransac_seed, fps_after_boot=n_timed / dt if dt > 0 else 0.0, frames_timed=n_timed, shutdown_s=shutdown_s,
+                  last_states=states[-2:],
                   launches=launches[:4], detects=seen["detect"], matches=seen["match"], guided=seen["guided"],
                   loop_matches=seen["loop_match"], peak_mib=torch.cuda.max_memory_allocated() / 2**20,
                   thread_failures=slam.local_mapping.failures + slam.local_handler.failures
@@ -2930,6 +3000,202 @@ def run_depth_facade_phases(torch, np, dev, counters, rgbd_world):
         if out["state"] != "OK" or boot != 0 or out["frames"] != n or not all(posed):
             raise AssertionError(f"processing ({sensor}): {out}, bootstrap on frame {boot}, poses {posed}")
     return totals
+
+
+def ff_parity(torch, np, name, cpu, card) -> dict:
+    """Card against CPU features of one detector: the shared keypoints (each
+    valid CPU keypoint with a valid card keypoint at the same position,
+    within the family's tolerance, and octave, in whatever slot: one
+    keypoint more or less shifts every weaker one by a slot), and on them
+    the angle and descriptor agreement."""
+    tol = FF_TOL[name]
+    c = {k: getattr(card, k).cpu().numpy() for k in ("xy", "angle", "octave", "desc", "valid")}
+    h = {k: getattr(cpu, k).numpy() for k in ("xy", "angle", "octave", "desc", "valid")}
+    ih, ic = np.nonzero(h["valid"])[0], np.nonzero(c["valid"])[0]
+    d = np.abs(h["xy"][ih][:, None, :] - c["xy"][ic][None, :, :]).max(axis=-1)
+    d = np.where(h["octave"][ih][:, None] == c["octave"][ic][None, :], d, np.inf)
+    j = d.argmin(axis=1)
+    ok = d[np.arange(len(ih)), j] <= tol["xy"]
+    ih, ic = ih[ok], ic[j[ok]]
+    gap = np.abs(h["angle"][ih] - c["angle"][ic])
+    gap = np.minimum(gap, 2 * np.pi - gap)
+    out = {"valid_cpu": int(h["valid"].sum()), "valid_card": int(c["valid"].sum()),
+           "same_share": float(len(ih) / max(h["valid"].sum(), 1)), "angle_max": float(gap.max(initial=0.0)),
+           "angle_share": float((gap <= tol["angle"]).mean())}
+    if "desc" in tol:
+        dd = np.abs(h["desc"][ih].view(np.float32) - c["desc"][ic].view(np.float32)).max(axis=1)
+        out.update(desc_max=float(dd.max(initial=0.0)), desc_share=float((dd <= tol["desc"]).mean()))
+    else:
+        def bits(w):
+            return (np.ascontiguousarray(w).view(np.uint32)[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+
+        out["bit_share"] = float((bits(h["desc"][ih]) == bits(c["desc"][ic])).mean())
+    return out
+
+
+def ff_detectors(torch, np, dev, frame, k1) -> int:
+    """Part a: each family's detector on the card and on the CPU at the
+    deploy width, printed and gated (FF_TOL); returns the K1 launches."""
+    from visual_slam_tpu_torch.frontend import feature_manager as tfm
+
+    img = torch.from_numpy(frame).to(dev)
+    launches = 0
+    params = dict(num_features=N_FEATURES, n_levels=N_LEVELS, grid=GRID)
+    for name in ("shi_tomasi_orb", "gradhist", "shi_tomasi_gradhist", "sift"):
+        kw = dict(num_features=N_FEATURES, n_octaves=3, contrast_threshold=0.02) if name == "sift" else params
+        t0 = time.perf_counter()
+        cpu = tfm.feature_factory(name, device="cpu", **kw).detectAndCompute(frame)
+        cpu_s = time.perf_counter() - t0
+        det = tfm.feature_factory(name, device=dev, **kw)
+        det.detectAndCompute(img)  # first call: the card's allocator and constants
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches = 0
+        card = det.detectAndCompute(img)
+        torch.cuda.synchronize()
+        one = k1.launches
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        med, mn = timed(lambda: det.detectAndCompute(img), reps=FF_DET_REPS, warmup=1)
+        launches += k1.launches
+        par = ff_parity(torch, np, name, cpu, card)
+        log(json.dumps({"phase": "feature_families_detect", "detector": name, "desc_words": det.desc_words,
+                        **par, "detect_ms": med, "detect_ms_min": mn, "reps": FF_DET_REPS, "peak_mib": peak,
+                        "k1_per_detect": one, "cpu_detect_s": cpu_s}))
+        if one != (1 if name == "shi_tomasi_orb" else 0):
+            raise AssertionError(f"{name}: K1 launched {one} times in one detect")
+        if par["same_share"] < FF_SHARE_MIN or par["angle_share"] < FF_SHARE_MIN:
+            raise AssertionError(f"{name}: card against CPU {par}")
+        if par.get("desc_share", 1.0) < FF_SHARE_MIN or par.get("bit_share", 1.0) < FF_BIT_SHARE_MIN:
+            raise AssertionError(f"{name}: card descriptors against the CPU's {par}")
+    return launches
+
+
+def ff_ivf(torch, np, dev):
+    """Part b: the IVF index at FlannMatcher's scale on the card: build and
+    search times, recall against the exact match, no invalid row matched,
+    the search equal to its CPU run."""
+    from visual_slam_tpu_torch.ops.ann import build_ivf_index, ivf_search
+    from visual_slam_tpu_torch.ops.matching import hamming_distance_matrix, match_nn
+
+    # tests/test_ann.py's draws (_random_db, _perturb), in the same order.
+    rng = np.random.default_rng(0)
+    db = rng.integers(0, 2**32, size=(FF_IVF_ROWS, 8), dtype=np.uint32)
+    valid = np.ones(FF_IVF_ROWS, bool)
+    valid[-32:] = False
+    q_rows = rng.choice(np.nonzero(valid)[0], size=FF_IVF_QUERIES, replace=False)
+    q = db[q_rows].copy()
+    for _ in range(8):
+        word, bit = rng.integers(0, 8), rng.integers(0, 32)
+        q[:, word] ^= np.uint32(1 << bit) * rng.integers(0, 2, q.shape[0]).astype(np.uint32)
+    desc, qdesc = db.view(np.int32), q.view(np.int32)
+    t = {d: [torch.from_numpy(a).to(d) for a in (desc, valid, qdesc)] for d in ("cpu", dev)}
+    d_c, v_c, q_c = t[dev]
+    q_ok = torch.ones(FF_IVF_QUERIES, dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = build_ivf_index(d_c, v_c, n_clusters=FF_IVF_CLUSTERS)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+
+    def search():
+        return ivf_search(index, q_c, q_ok, n_probe=FF_IVF_PROBES, ratio=0.9)
+
+    res = search()
+    wall, _ = timed(search, reps=REPS)
+    dev_ms, gapless = device_ms(search, n=20)
+    # The exact match: K2's plain version (the dense Hamming matrix and its
+    # top-2), since K2 takes at most 5800 train rows.
+    ti_e, _, ok_e = match_nn(hamming_distance_matrix(q_c, d_c, q_ok, v_c), ratio=0.9, cross_check=False)
+    ti, ok = res["train_idx"].cpu().numpy(), res["valid"].cpu().numpy()
+    ti_e, ok_e = ti_e.cpu().numpy(), ok_e.cpu().numpy()
+    recall = float((ok & (ti == ti_e))[ok_e].mean())
+    planted = float((ok & (ti == q_rows)).mean())
+    tail = ivf_search(index, d_c[-16:], q_ok[:16], n_probe=FF_IVF_PROBES, ratio=0.0)
+    t_ti, t_ok = tail["train_idx"].cpu().numpy(), tail["valid"].cpu().numpy()
+    cpu_index = build_ivf_index(t["cpu"][0], t["cpu"][1], n_clusters=FF_IVF_CLUSTERS)
+    same_index = all(torch.equal(a.cpu(), b) for a, b in zip(index, cpu_index))
+    cpu_res = ivf_search(cpu_index, t["cpu"][2], torch.ones(FF_IVF_QUERIES, dtype=torch.bool), n_probe=FF_IVF_PROBES,
+                         ratio=0.9)
+    same_search = all(torch.equal(res[k].cpu(), cpu_res[k]) for k in ("train_idx", "distance", "valid"))
+    log(json.dumps({"phase": "feature_families_ivf", "rows": FF_IVF_ROWS, "queries": FF_IVF_QUERIES,
+                    "clusters": index.n_clusters, "bucket_cap": index.bucket_cap, "probes": FF_IVF_PROBES,
+                    "build_ms": build_ms, "search_wall_ms": wall, "search_device_ms": dev_ms,
+                    "search_device_gapless": gapless, "recall_vs_exact": recall, "planted_recall": planted,
+                    "matched": int(ok.sum()),
+                    "invalid_rows_matched": int((~valid[ti[ok]]).sum() + (~valid[t_ti[t_ok]]).sum()),
+                    "index_equals_cpu": same_index, "search_equals_cpu": same_search}))
+    if recall < FF_IVF_RECALL_MIN:
+        raise AssertionError(f"IVF: recall {recall} against the exact match, below {FF_IVF_RECALL_MIN}")
+    if not valid[ti[ok]].all() or not valid[t_ti[t_ok]].all():
+        raise AssertionError("IVF: an invalid row was matched")
+    if not (same_index and same_search):
+        raise AssertionError(f"IVF: card index equals the CPU's {same_index}, search {same_search}")
+
+
+def run_feature_families(torch, np, dev, counters, card):
+    """The feature-family phase: (a) the detectors card against CPU, (b) the
+    IVF index, (c) the host facade per family over the deploy world's first
+    FAMILY_FRAMES frames at its RANSAC seeds; a family that the JAX package
+    fails at every seed there (FF_JAX) runs tests/test_float_family_slam.py's
+    world and ``sift_config`` instead, with that test's assertions as gates.
+    Prints one JSON line per part and run; returns the K1-K4 launches of
+    parts a and c; raises if a gate fails."""
+    import facade_world as fw
+
+    from visual_slam_tpu_torch.config import Config
+
+    t_phase = time.perf_counter()
+    deploy = fw.deploy_frames(fw.FAMILY_FRAMES)
+    total = [ff_detectors(torch, np, dev, deploy[0][0], counters[0]), 0, 0, 0]
+    ff_ivf(torch, np, dev)
+    for family, (detector, matcher, _, seeds) in fw.FAMILIES.items():
+        ref = FF_JAX[family]
+        e2e = ref["failed"] == len(seeds)
+        frames, K, Ts = fw.e2e_frames(10) if e2e else deploy
+        runs = []
+        for seed in seeds:
+            cfg = fw.sift_config(Config, family) if e2e else fw.family_config(Config, family)
+            slam, r = facade_run(torch, np, dev, counters, frames, K, Ts, cfg, ransac_seed=seed)
+            widths = sorted({int(np.asarray(mp.descriptor).size) for mp in slam.map.get_map_points()
+                             if mp.descriptor is not None})
+            words = slam.feature_tracker.desc_words
+            kf_pct = r.get("ate_keyframes", {}).get("pct", float("inf"))
+            if e2e:  # tests/test_float_family_slam.py's assertions
+                ok = (r["last_states"] == ["OK", "OK"] and r["keyframes"] >= 3 and r["landmarks"] > 50
+                      and widths == [words])
+                outcome = "clean" if ok else "failed the e2e assertions"
+            else:
+                outcome = "LOST" if r["lost_after_boot"] else "scale jump" if kf_pct > FACADE_JUMP_PCT else "clean"
+            r.update(family=family, world="e2e" if e2e else "deploy", detector=detector, matcher=matcher,
+                     desc_widths=widths, card=card, outcome=outcome)
+            log(json.dumps({"phase": "feature_families_facade", **r}, default=float))
+            for k, n in enumerate(r["launches"]):
+                total[k] += n
+            if words == 8:
+                expected = [r["detects"], r["matches"], r["guided"], 0]
+                if r["launches"] != expected:
+                    raise AssertionError(f"{family}: launches K1-K4 {r['launches']} != the run's calls {expected}")
+            elif any(r["launches"]) or widths != [128]:
+                raise AssertionError(f"{family}: launches K1-K4 {r['launches']}, landmark descriptor widths {widths}")
+            runs.append(r)
+            del slam
+        clean = [r["ate_keyframes"]["pct"] for r in runs if r["outcome"] == "clean"]
+        failed = [(r["ransac_seed"], r["outcome"]) for r in runs if r["outcome"] != "clean"]
+        med = statistics.median(clean) if clean else None
+        gate = max(2 * ref["median_pct"], FF_ATE_PCT_FLOOR) if ref["median_pct"] is not None else None
+        log(json.dumps({"phase": "feature_families_runs", "family": family, "world": "e2e" if e2e else "deploy",
+                        "seeds": list(seeds), "outcomes": [r["outcome"] for r in runs], "failed_runs": failed,
+                        "jax_failed": ref["failed"], "median_clean_ate_keyframes_pct": med, "ate_gate_pct": gate,
+                        "fps_after_boot": [r["fps_after_boot"] for r in runs], "card": card}))
+        if e2e and failed:
+            raise AssertionError(f"{family}: runs on the e2e world failed its assertions {failed}")
+        if not e2e and len(failed) > ref["failed"]:
+            raise AssertionError(f"{family}: {len(failed)} failed runs {failed}, JAX fails {ref['failed']}")
+        if not e2e and med is not None and med > gate:
+            raise AssertionError(f"{family}: median keyframe ATE {med:.3f} % above {gate:.3f} %")
+    log(f"feature families phase: {time.perf_counter() - t_phase:.1f} s, launches K1-K4 {total}")
+    return total
 
 
 def run_processing(torch, np, dev, counters, source, K, cfg, p1_tx=None):
@@ -3615,13 +3881,15 @@ def main() -> int:
     elapsed("the stereo and RGB-D facade")
     stereo, rgbd = depth["stereo"], depth["rgbd"]
     stereo_launches = [stereo["k1"], stereo["k2"], stereo["k3"], stereo["k4"], 0]
+    ff_launches = run_feature_families(torch, np, dev, counters, card) + [0]
+    elapsed("the feature families")
     lp_launches, lp_k4, lp_k4_args = run_loop_pipeline(torch, np, dev, counters)
     elapsed("the loop pipeline")
     ss_launches = [0, ss["k2"], ss["k3"], 0, 0]
     k1b, k1l, sp_k2, sp_k3 = sp["launches_k1_batched_k1_levels_k2_k3"]
     sp_launches = [k1l, sp_k2, sp_k3, 0, 0]
     parts = list(zip(launches, ss_launches, loop_launches, fp_launches, sp_launches, facade_launches,
-                     stereo_launches, lp_launches))
+                     stereo_launches, ff_launches, lp_launches))
     for row, part in zip(rows, parts):
         row["launches"] = sum(part)
     for row, n in zip(rows[len(parts):], multiseq_launches):
@@ -3640,7 +3908,8 @@ def main() -> int:
         raise AssertionError(f"RGB-D phases launched the batched K1 {rgbd['k1_batched']} and K4 {rgbd['k4']} times")
     rows.append(k1_b8_row)
     log("launches per kernel (tracking, stereo step, loop path, full pipeline with its two async runs, stereo "
-        "pipeline, facade phases, stereo facade phases, loop pipeline phases with the async and sparse passes): "
+        "pipeline, facade phases, stereo facade phases, feature families, loop pipeline phases with the async and "
+        "sparse passes): "
         f"{[(r['name'], *part) for r, part in zip(rows, parts)]}; K5 has no caller on any path; "
         f"batched (multiseq phase; stereo facade phases, the stereo step and the stereo pipeline ({k1b})), RGB-D "
         f"facade phases and RGB-D pipeline (K1 {rp_k1}, K2 {rp_k2}, K3 {rp_k3}) and the batched stereo step: "

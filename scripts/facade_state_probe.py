@@ -21,6 +21,10 @@ at each of the given seeds, with the same printout.
         --snapshot results/snaps/seed5_after14.pkl --seeds 0 1 2 3
     python scripts/facade_state_probe.py continue --impl torch --device cpu \\
         --snapshot results/snaps/seed5_after14.pkl --seeds 0 1 2 3
+
+``--family gradhist`` (a family of ``facade_world.FAMILIES``) runs that
+family's detector and matcher over the world's first ``FAMILY_FRAMES``
+frames instead.
 """
 from __future__ import annotations
 
@@ -226,12 +230,22 @@ def main() -> int:
     ap.add_argument("--snap-after", type=int, nargs="*", default=[], help="record: frames after which to snapshot")
     ap.add_argument("--snapshot", help="continue: the state to start from")
     ap.add_argument("--out", default="results/facade_snapshots")
+    ap.add_argument("--reseed-filter", action="store_true",
+                    help="reseed the feature tracker's fundamental-matrix RANSAC (local mapping's matches) with the "
+                         "run's seed too; by default only tracking's RANSAC is reseeded")
+    ap.add_argument("--family", default=None,
+                    help="a feature family of facade_world.FAMILIES: its detector and matcher, the world cut to "
+                         "FAMILY_FRAMES frames")
     args = ap.parse_args()
 
     import facade_world as fw
 
-    frames, K, Ts = fw.deploy_frames(64)
+    frames, K, Ts = fw.deploy_frames(fw.FAMILY_FRAMES if args.family else 64)
     h, w = frames[0].shape
+
+    def config(Config):
+        return fw.family_config(Config, args.family) if args.family else fw.deploy_config(Config)
+
     if args.impl == "jax":
         import jax
 
@@ -241,23 +255,26 @@ def main() -> int:
         from visual_slam_tpu.slam import SLAM
         from visual_slam_tpu.utils.metrics import ate_rmse
 
-        make = lambda: SLAM(PinholeCamera(width=w, height=h, K=K), fw.deploy_config(Config))  # noqa: E731
+        make = lambda: SLAM(PinholeCamera(width=w, height=h, K=K), config(Config))  # noqa: E731
         install = install_jax
 
         def reseed(slam, seed):
             slam.tracking._key = jax.random.PRNGKey(seed)
+            if args.reseed_filter:
+                slam.feature_tracker._key = jax.random.PRNGKey(seed)
     else:
         from visual_slam_tpu_torch.camera import PinholeCamera
         from visual_slam_tpu_torch.config import Config
         from visual_slam_tpu_torch.slam import SLAM
         from visual_slam_tpu_torch.utils.metrics import ate_rmse
 
-        make = lambda: SLAM(PinholeCamera(width=w, height=h, K=K), fw.deploy_config(Config),  # noqa: E731
-                            device=args.device)
+        make = lambda: SLAM(PinholeCamera(width=w, height=h, K=K), config(Config), device=args.device)  # noqa: E731
         install = install_port
 
         def reseed(slam, seed):
             slam.tracking._gen.manual_seed(seed)
+            if args.reseed_filter:
+                slam.feature_tracker._gen.manual_seed(seed)
 
     def summarize(slam, states, poses):
         out = {"impl": args.impl, "device": args.device if args.impl == "torch" else "cpu", "state": slam.state.name,

@@ -12,6 +12,13 @@ world sees the same frames and settings. Each ``*_config`` takes the
   2048, the initializer's ``min_inliers``), loop closing off.
 * ``e2e``: tests/test_slam_e2e.py's 12-frame 320x240 world and
   ``small_config``.
+* ``families``: the deploy world's first ``FAMILY_FRAMES`` frames and
+  settings, with the detector and matcher of each feature family
+  (``FAMILIES``): DoG SIFT + L2 (``sift_config``'s detector parameters),
+  GradHist + L2 and Shi-Tomasi ORB + Hamming, each at its RANSAC seeds; and
+  tests/test_float_family_slam.py's world (``e2e_frames(10)``) with its
+  ``sift_config``, or that configuration with another family's detector and
+  matcher, for a family the JAX package cannot track through the deploy world.
 * ``endurance``: ``bench.bench_loop_endurance_device``'s world and
   configuration: a 320x240 ring, 200 frames, a texture blackout at frames
   60-62, sensor noise and a brightness drift, 320 features,
@@ -44,6 +51,25 @@ def deploy_config(Config, num_features: int = 2000):
     cfg.optimization.point_bucket_floor = 2048
     cfg.initialization.min_inliers = min(100, max(30, num_features // 20))
     cfg.loop_closing.enabled = False
+    return cfg
+
+
+FAMILY_FRAMES = 32
+# family -> (detector, matcher, detector_params, RANSAC seeds); 13 is the tracker's default.
+FAMILIES = {
+    "sift": ("sift", "l2", {"n_octaves": 3, "contrast_threshold": 0.02}, (13, 0, 1, 2)),
+    "gradhist": ("gradhist", "l2", {}, (13, 0)),
+    "shi_tomasi_orb": ("shi_tomasi_orb", "bf_hamming", {}, (13, 0)),
+}
+
+
+def family_config(Config, family: str):
+    """The deploy settings with ``family``'s detector and matcher."""
+    detector, matcher, params, _ = FAMILIES[family]
+    cfg = deploy_config(Config)
+    cfg.feature.detector_name = detector
+    cfg.feature.matcher_name = matcher
+    cfg.feature.detector_params = dict(params)
     return cfg
 
 
@@ -101,6 +127,29 @@ def e2e_config(Config):
     cfg.feature.num_pyramid_levels = 2
     cfg.feature.fast_threshold = 12.0
     cfg.feature.grid_cells = 4
+    cfg.initialization.min_inliers = 40
+    cfg.initialization.min_parallax_deg = 0.5
+    cfg.initialization.essential_hypotheses = 128
+    cfg.tracking.min_inliers = 10
+    cfg.tracking.keyframe_interval = 2
+    cfg.tracking.kf_min_matches = 25
+    cfg.tracking.pnp_hypotheses = 128
+    cfg.optimization.n_iter = 12
+    cfg.optimization.window_size = 8
+    cfg.local_mapping.max_neighbors = 2
+    cfg.local_mapping.min_parallax_deg = 0.3
+    return cfg
+
+
+def sift_config(Config, family: str = "sift"):
+    """tests/test_float_family_slam.py's ``sift_config``, with ``family``'s
+    detector and matcher (``FAMILIES``)."""
+    detector, matcher, params, _ = FAMILIES[family]
+    cfg = Config()
+    cfg.feature.detector_name = detector
+    cfg.feature.matcher_name = matcher
+    cfg.feature.num_features = 384
+    cfg.feature.detector_params = dict(params)
     cfg.initialization.min_inliers = 40
     cfg.initialization.min_parallax_deg = 0.5
     cfg.initialization.essential_hypotheses = 128

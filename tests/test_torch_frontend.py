@@ -11,6 +11,7 @@ import torch
 
 from render import render_sequence
 from visual_slam_tpu.config import Config as JConfig
+from visual_slam_tpu.frontend import feature_manager as jfm
 from visual_slam_tpu.frontend.tracker import FeatureTracker as JFeatureTracker
 from visual_slam_tpu.ops import epipolar as jepi
 from visual_slam_tpu_torch.config import Config
@@ -65,12 +66,19 @@ def test_ransac_filter_with_injected_draws(pair, seed):
     assert abs(got.n_matches - ref.n_matches) <= 2
 
 
-def test_unported_families_raise():
-    for name in ("sift", "gradhist", "shi_tomasi_orb"):
-        with pytest.raises(NotImplementedError):
-            fm.feature_factory(name)
-    for name in ("l2", "flann"):
-        with pytest.raises(NotImplementedError):
-            fm.matcher_factory(name)
-    assert isinstance(fm.feature_factory("orb", num_features=64, device="cpu"), fm.FastOrbFeature2D)
-    assert isinstance(fm.matcher_factory("bf_hamming"), fm.BFMatcherHamming)
+@pytest.mark.parametrize("kind,name",
+                         [("detector", n) for n in jfm._DETECTORS] + [("matcher", n) for n in jfm._MATCHERS])
+def test_every_factory_name_builds(kind, name):
+    """Every name of the JAX package's two factory tables builds in the port
+    (``sift_cv2`` where cv2 is installed), as the same class, with the
+    JAX detector's descriptor width."""
+    if name == "sift_cv2":
+        pytest.importorskip("cv2")
+    if kind == "matcher":
+        assert type(fm.matcher_factory(name)).__name__ == type(jfm.matcher_factory(name)).__name__
+        return
+    det = fm.feature_factory(name, num_features=64, device="cpu")
+    ref = jfm.feature_factory(name, num_features=64)
+    assert type(det).__name__ == type(ref).__name__
+    assert det.desc_words == ref.desc_words
+    assert set(fm._DETECTORS) == set(jfm._DETECTORS) and set(fm._MATCHERS) == set(jfm._MATCHERS)

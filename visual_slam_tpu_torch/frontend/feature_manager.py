@@ -1,7 +1,6 @@
 """Detector/matcher factories and the FeatureManager facade
 (port of ``visual_slam_tpu.frontend.feature_manager``): the same names,
-mapped onto the port's classes; the families not ported raise
-``NotImplementedError`` when built."""
+mapped onto the port's classes."""
 from __future__ import annotations
 
 from ..config import FeatureConfig
@@ -22,10 +21,10 @@ _DETECTORS = {
     "fast_orb_anms": FastOrbFeature2D,  # grid top-k subsumes ANMS balancing
     "fastbrief": FastOrbFeature2D,
     "shi_tomasi_orb": ShiTomasiOrbFeature2D,
-    "sift": DoGSiftFeature2D,
+    "sift": DoGSiftFeature2D,  # DoG + GradHist (ops/sift.py)
     "sift_tpu": DoGSiftFeature2D,
     "dog_gradhist": DoGSiftFeature2D,
-    "sift_cv2": SIFTFeature2D,
+    "sift_cv2": SIFTFeature2D,  # OpenCV on the host
     "gradhist": GradHistFeature2D,
     "fast_gradhist": GradHistFeature2D,
     "shi_tomasi_gradhist": ShiTomasiGradHistFeature2D,

@@ -1,16 +1,18 @@
 """Compact global keyframe signatures for place recognition
-(port of ``visual_slam_tpu.loop_closing.signature``, binary family).
+(port of ``visual_slam_tpu.loop_closing.signature``).
 
-A fixed random binary codebook of V visual words (seed 77, the same numpy
-draw as the JAX package). Word assignment for all K descriptors is one
-(K, 256) x (256, V) product of 0/1 bits with the +/-1 codebook, whose
-argmax is the nearest word by Hamming distance; the signature is the
-L2-normalised word histogram. Every projection is an integer held exactly
-in f32 (with TF32 off, which the package sets), so ties are common and
-``argmax`` must take the first index, as ``jnp.argmax`` does. Scoring is a
-host-side numpy matvec over the signature table.
-
-The float-descriptor codebook (SIFT/GradHist families) is not ported yet.
+A fixed random codebook of V visual words, the same numpy draws as the
+JAX package: binary words (seed 77) for the 256-bit families, random unit
+directions (seed 78) for the float families (128-wide blocks, f32 bitcast
+in int32 words). Word assignment for all K descriptors is one product
+with the codebook, whose argmax is the nearest word: for binary blocks
+the (K, 256) 0/1 bits against the +/-1 codebook (Hamming), for float
+blocks the descriptors against the unit directions (L2 on unit-norm
+descriptors). The signature is the L2-normalised word histogram. Every
+binary projection is an integer held exactly in f32 (with TF32 off, which
+the package sets), so ties are common and ``argmax`` must take the first
+index, as ``jnp.argmax`` does. Scoring is a host-side numpy matvec over the
+signature table.
 """
 from __future__ import annotations
 
@@ -34,11 +36,28 @@ def _make_codebook(seed: int = 77) -> np.ndarray:
 _CODEBOOK = torch.from_numpy(_make_codebook())
 
 
+def _make_codebook_float(dim: int = 128, seed: int = 78) -> np.ndarray:
+    """(dim, V) random unit directions, the visual words of the float
+    families: on unit-norm descriptors the nearest word under L2 is the
+    argmax of the projection."""
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(N_WORDS_VOCAB, dim)).astype(np.float32)
+    w /= np.linalg.norm(w, axis=1, keepdims=True)
+    return w.T
+
+
+_CODEBOOK_F = torch.from_numpy(np.ascontiguousarray(_make_codebook_float()))
+
+
 def keyframe_signature(desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """(..., K, 8) int32 words + (..., K) mask -> (..., V) L2-normalised
-    visual-word histogram, on the descriptors' device."""
-    bits = unpack_bits(desc, dtype=torch.float32)  # (..., K, 256)
-    proj = bits @ _CODEBOOK.to(desc.device)  # (..., K, V)
+    """(..., K, 8) int32 words, or (..., K, 128) bitcast float descriptors,
+    + (..., K) mask -> (..., V) L2-normalised visual-word histogram, on the
+    descriptors' device. The codebook follows the descriptor width."""
+    if int(desc.shape[-1]) == 8:
+        x, codebook = unpack_bits(desc, dtype=torch.float32), _CODEBOOK  # (..., K, 256)
+    else:
+        x, codebook = desc.view(torch.float32), _CODEBOOK_F  # (..., K, 128)
+    proj = x @ codebook.to(desc.device)  # (..., K, V)
     word = torch.argmax(proj, dim=-1)
     hist = torch.zeros(word.shape[:-1] + (N_WORDS_VOCAB,), dtype=torch.float32, device=desc.device)
     hist = hist.scatter_add(-1, word, valid.to(torch.float32))
@@ -47,7 +66,7 @@ def keyframe_signature(desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 def batch_signatures(descs: torch.Tensor, valids: torch.Tensor) -> np.ndarray:
-    """(N, K, 8) + (N, K) -> (N, V) numpy, in one batched pass on the
+    """(N, K, W) + (N, K) -> (N, V) numpy, in one batched pass on the
     descriptors' device (backfills keyframes without a signature)."""
     return keyframe_signature(descs, valids).cpu().numpy()
 

@@ -172,7 +172,7 @@ class Frame(FrameBase):
         return self._np_view("xy", cam_id, self.features[cam_id].xy)
 
     def descriptors(self, cam_id: int = 0) -> np.ndarray:
-        """(K, 8) int32 descriptor words."""
+        """(K, W) int32 descriptor words: W = 8 (binary) or 128 (float, bitcast)."""
         return self._np_view("desc", cam_id, self.features[cam_id].desc)
 
     def valid_mask(self, cam_id: int = 0) -> np.ndarray:

@@ -41,13 +41,20 @@ def level_quotas(num_features: int, n_levels: int, scale: float) -> list[int]:
 
 
 def detect_level(
-    lvl: torch.Tensor, k: int, threshold: float, grid: int, edge_margin: int
+    lvl: torch.Tensor, k: int, threshold: float, grid: int, edge_margin: int, score: str = "fast"
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """FAST scores, NMS, interior mask and grid top-k on one (..., H_l, W_l)
-    level: (yx (..., k, 2) int32, response (..., k), valid (..., k),
-    subpixel offsets (..., k, 2))."""
+    """FAST (or, with ``score="shi_tomasi"``, Shi-Tomasi: ``threshold`` is
+    then the relative quality level) scores, NMS, interior mask and grid
+    top-k on one (..., H_l, W_l) level: (yx (..., k, 2) int32, response
+    (..., k), valid (..., k), subpixel offsets (..., k, 2))."""
     Hl, Wl = lvl.shape[-2:]
-    scores = fast_ops.nms(fast_ops.fast_scores(lvl, threshold))
+    if score == "shi_tomasi":
+        scores = fast_ops.shi_tomasi_scores(lvl, quality_level=threshold)
+    elif score == "fast":
+        scores = fast_ops.fast_scores(lvl, threshold)
+    else:
+        raise ValueError(f"unknown score {score!r}")
+    scores = fast_ops.nms(scores)
     scores = torch.where(fast_ops.interior_mask(Hl, Wl, edge_margin, lvl.device), scores, 0.0)
     yx, resp, valid = fast_ops.top_k_grid(scores, k, grid=grid)
     return yx, resp, valid, fast_ops.subpixel_offsets(scores, yx)
@@ -63,9 +70,11 @@ def detect_and_describe(
     scale: float = 1.2,
     grid: int = 8,
     edge_margin: int = 16,
+    score: str = "fast",
 ) -> Features:
     """Full ORB front end on one (H, W) grayscale image in [0, 255], or on a
-    (B, H, W) batch of them (features with a leading B).
+    (B, H, W) batch of them (features with a leading B). ``score`` picks
+    the corner map (``detect_level``); the tail is the same either way.
 
     ``sampling`` is the (961, 15360) rotated-BRIEF matrix and ``moment_w``
     the (961, 2) moment weights, both on the image's device."""
@@ -74,7 +83,7 @@ def detect_and_describe(
     img = img.to(torch.float32)
     levels = [lvl.contiguous() for lvl in pyr_ops.build_pyramid(img, n_levels, scale)]
     quotas = level_quotas(num_features, n_levels, scale)
-    dets = [detect_level(lvl, k_l, threshold, grid, edge_margin) for lvl, k_l in zip(levels, quotas)]
+    dets = [detect_level(lvl, k_l, threshold, grid, edge_margin, score) for lvl, k_l in zip(levels, quotas)]
     blurred = [pyr_ops.gaussian_blur(lvl, sigma=2.0, radius=3) for lvl in levels]
     # K1 once for every level (and frame); its outputs are level-major, as the features.
     k1 = patches_and_moments_batched if batch else patches_and_moments_levels

@@ -68,6 +68,33 @@ def fast_scores(img: torch.Tensor, threshold: float) -> torch.Tensor:
     return torch.where(interior_mask(H, W, BORDER, img.device), score, 0.0)
 
 
+_SOBEL_X = ((-1.0, 0.0, 1.0), (-2.0, 0.0, 2.0), (-1.0, 0.0, 1.0))
+
+
+def shi_tomasi_scores(img: torch.Tensor, quality_level: float = 0.01, window: int = 5) -> torch.Tensor:
+    """(..., H, W) Shi-Tomasi (min-eigenvalue) corner map: Sobel gradients,
+    the structure tensor box-summed over ``window`` x ``window`` (zero
+    'SAME' padding, as the JAX version's convolutions), its smaller
+    eigenvalue, zeroed at the border and at or below ``quality_level``
+    times the frame's maximum (cv2's goodFeaturesToTrack rule)."""
+    *batch, H, W = img.shape
+    x = img.reshape(-1, 1, H, W)
+    sob_x = torch.tensor(_SOBEL_X, dtype=img.dtype, device=img.device)
+    k = torch.stack([sob_x, sob_x.T])[:, None]  # (2, 1, 3, 3): gx, gy
+    g = F.conv2d(x, k, padding=1)
+    gx, gy = g[:, 0], g[:, 1]
+    prods = torch.stack([gx * gx, gy * gy, gx * gy], dim=1)
+    box = torch.ones((3, 1, window, window), dtype=img.dtype, device=img.device)
+    S = F.conv2d(prods, box, padding=window // 2, groups=3)
+    Sxx, Syy, Sxy = S[:, 0], S[:, 1], S[:, 2]
+    half_tr = 0.5 * (Sxx + Syy)
+    half_df = 0.5 * (Sxx - Syy)
+    lam_min = half_tr - torch.sqrt(half_df * half_df + Sxy * Sxy)
+    lam_min = torch.where(interior_mask(H, W, BORDER, img.device), lam_min, 0.0).reshape(*batch, H, W)
+    thresh = float(quality_level) * lam_min.amax(dim=(-2, -1), keepdim=True)
+    return torch.where(lam_min > thresh, lam_min, 0.0)
+
+
 def _pool3(x: torch.Tensor, fill: float, op) -> torch.Tensor:
     """3x3 'SAME' pooling with ``fill`` outside the image, as shifted slices."""
     H, W = x.shape[-2:]

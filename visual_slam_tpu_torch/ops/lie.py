@@ -165,6 +165,12 @@ def _cofactors(M: torch.Tensor) -> torch.Tensor:
     return torch.linalg.cross(M.roll(-1, dims=-2), M.roll(-2, dims=-2))
 
 
+def adjugate3x3(M: torch.Tensor) -> torch.Tensor:
+    """Adjugate of (..., 3, 3) matrices (M adj(M) = det(M) I): the
+    transposed cofactor matrix."""
+    return _cofactors(M).mT
+
+
 def det3x3(M: torch.Tensor) -> torch.Tensor:
     """Closed-form determinant over (..., 3, 3): the cofactor expansion
     along row 0."""

@@ -1,10 +1,15 @@
 """Descriptor matching and its filter chain (port of ``visual_slam_tpu.ops.matching``).
 
-The distance + top-2 + cross-check stage runs in kernel K2
-(``match_kernels.hamming_top2``), or K4 for a batch of candidate blocks
-(``hamming_top2_batched``), on the card and in their plain versions on the
-CPU; the JAX package's backend sniffing is gone. All matchers return a
-fixed-shape table aligned to the query side. The filters take leading batch
+The descriptor width is the metric (``is_binary_desc``): a binary block
+is 8 int32 words of a 256-bit descriptor, a float block 128 f32 bitcast
+into int32 words. For binary blocks the distance + top-2 + cross-check
+stage runs in kernel K2 (``match_kernels.hamming_top2``), or K4 for a
+batch of candidate blocks (``hamming_top2_batched``), on the card and in
+their plain versions on the CPU; the JAX package's backend sniffing is
+gone. Float blocks never reach those kernels: they take the dense L2
+matrix (``l2_distance_matrix``, one product, as the JAX package's XLA
+path) and ``match_nn``. All matchers return a fixed-shape table aligned to
+the query side. The filters take leading batch
 dimensions (one row per candidate block); ``match_descriptors`` takes a
 leading B on both sides (B query blocks, each against its own train block:
 the batched VO step), which goes through K2 once as ``hamming_top2_paired``.
@@ -20,13 +25,42 @@ from .match_kernels import hamming_top2_paired
 from .match_kernels import top2 as min2  # (best, second, argmin), first-index ties
 
 
+def l2_distance_matrix(
+    desc1: torch.Tensor, desc2: torch.Tensor, valid1: torch.Tensor, valid2: torch.Tensor
+) -> torch.Tensor:
+    """(..., K1, D) x (..., K2, D) float descriptors, bitcast in int32 words
+    -> (..., K1, K2) f32 L2 distances by |a|^2 + |b|^2 - 2 a.b (one
+    product); invalid rows and columns get BIG."""
+    d1 = desc1.view(torch.float32)
+    d2 = desc2.view(torch.float32)
+    n1 = torch.sum(d1 * d1, dim=-1)
+    n2 = torch.sum(d2 * d2, dim=-1)
+    d = torch.sqrt(torch.clamp(n1[..., :, None] + n2[..., None, :] - 2.0 * (d1 @ d2.mT), min=0.0))
+    return torch.where(valid1[..., :, None] & valid2[..., None, :], d, BIG)
+
+
+def is_binary_desc(desc: torch.Tensor) -> bool:
+    """Binary families pack 256 bits into 8 words; float families bitcast
+    128 f32 into 128 words. Every matching site dispatches on this, before
+    any kernel: a float block never reaches K2, K3 or K4."""
+    return int(desc.shape[-1]) == 8
+
+
+def distance_matrix(desc1, desc2, valid1, valid2) -> torch.Tensor:
+    """Dense (..., K1, K2) distances in the metric of the descriptor width:
+    Hamming (exact integers in f32) or L2."""
+    if is_binary_desc(desc1):
+        return hamming_distance_matrix(desc1, desc2, valid1, valid2)
+    return l2_distance_matrix(desc1, desc2, valid1, valid2)
+
+
 def match_nn(
     dist: torch.Tensor, ratio: float = 0.75, cross_check: bool = True, max_distance: float = 0.0
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Nearest-neighbour match with Lowe ratio and optional cross-check on
     a dense distance matrix: (train_idx (K1,), distance (K1,), valid (K1,))."""
     best, second, ti = min2(dist)
-    rev = torch.argmin(dist, dim=0)
+    rev = torch.argmin(dist, dim=-2)
     return ti, best, _nn_ok(best, second, ti, rev, ratio, cross_check, max_distance)
 
 
@@ -96,15 +130,20 @@ def match_descriptors(
     keep_bins: int = 3,
     max_distance: float = 0.0,
 ) -> dict:
-    """K2 match -> unique-train -> optional orientation filter. Returns
-    ``train_idx`` (K1,) int64, ``distance``, ``valid`` and ``n_matches``
-    (a 0-d tensor: the step never reads it on the host). On the card the
+    """K2 match (binary blocks) or dense L2 match (float blocks) ->
+    unique-train -> optional orientation filter. Returns ``train_idx``
+    (K1,) int64, ``distance``, ``valid`` and ``n_matches`` (a 0-d tensor:
+    the step never reads it on the host). On the card a binary block's
     (K1, K2) distance matrix never exists: kernel K2 reduces it in place.
     With a leading B on every input (query block b against train block b)
     each output carries it too."""
-    top2 = hamming_top2 if desc1.dim() == 2 else hamming_top2_paired
-    d, second, ti, colarg = top2(desc1, desc2, valid1, valid2)
-    ok = _nn_ok(d, second, ti, colarg, ratio, cross_check, max_distance)
+    if is_binary_desc(desc1):
+        top2 = hamming_top2 if desc1.dim() == 2 else hamming_top2_paired
+        d, second, ti, colarg = top2(desc1, desc2, valid1, valid2)
+        ok = _nn_ok(d, second, ti, colarg, ratio, cross_check, max_distance)
+    else:
+        ti, d, ok = match_nn(l2_distance_matrix(desc1, desc2, valid1, valid2), ratio=ratio, cross_check=cross_check,
+                             max_distance=max_distance)
     ti = ti.long()
     ok = unique_train(ti, d, ok, desc2.shape[-2])
     if use_orientation and angle1 is not None:
@@ -128,7 +167,14 @@ def match_descriptors_batched(
     test, the cross-check, ``unique_train`` and ``orientation_filter``
     (``keep_bins=3``): ``match_descriptors`` of each candidate, stacked.
     Returns ``train_idx`` (C, K1) int64, ``distance`` and ``valid`` (C, K1)
-    and ``n_matches`` (C,)."""
+    and ``n_matches`` (C,). Float blocks (C, K2, 128) go through
+    ``match_descriptors`` one candidate at a time, as the JAX package's
+    ``lax.map``: one (K1, K2) matrix at a time."""
+    if not is_binary_desc(desc_q):
+        outs = [match_descriptors(desc_q, desc_c[c], valid_q, valid_c[c], angle_q, angle_c[c], ratio=ratio,
+                                  cross_check=cross_check, use_orientation=use_orientation)
+                for c in range(desc_c.shape[0])]
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
     best, second, ti, colarg = hamming_top2_batched(desc_q, desc_c, valid_q, valid_c)
     ok = _nn_ok(best, second, ti, colarg, ratio, cross_check, 0.0)
     ti = ti.long()

@@ -98,13 +98,18 @@ def orientations(patches: torch.Tensor, moment_w: torch.Tensor) -> torch.Tensor:
     return torch.atan2(m[:, 1], m[:, 0])
 
 
-def angle_bins(angles: torch.Tensor) -> torch.Tensor:
-    """Steering bin of each angle: floor(mod(a, 2pi) / 2pi * N_BINS) % N_BINS,
-    with ``jnp.mod``'s sign rule (fmod, then shift negatives by the divisor)."""
+def floor_mod(x: torch.Tensor, y: float) -> torch.Tensor:
+    """``jnp.mod(x, y)`` for y > 0, as JAX computes it: fmod, then shift a
+    negative remainder by the divisor."""
+    m = torch.fmod(x, y)
+    return torch.where((m != 0) & (m < 0), m + y, m)
+
+
+def angle_bins(angles: torch.Tensor, n_bins: int = N_BINS) -> torch.Tensor:
+    """Steering bin of each angle: floor(mod(a, 2pi) / 2pi * n_bins) % n_bins."""
     two_pi = 2.0 * math.pi
-    m = torch.fmod(angles, two_pi)
-    m = torch.where((m != 0) & (m < 0), m + two_pi, m)
-    return torch.remainder(torch.floor(m / two_pi * N_BINS).to(torch.int64), N_BINS)
+    m = floor_mod(angles, two_pi)
+    return torch.remainder(torch.floor(m / two_pi * n_bins).to(torch.int64), n_bins)
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:

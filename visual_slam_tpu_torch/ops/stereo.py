@@ -2,13 +2,14 @@
 ``visual_slam_tpu.ops.stereo``), plain PyTorch with fixed shapes.
 
 ``stereo_feature_depths`` gives every left keypoint a depth from one
-(K_l, K_r) Hamming matrix with the rectified row/disparity gate applied
-inside it, before the top-2, ratio test and cross-check, so the nearest
-neighbour is the best epipolar-consistent candidate. The JAX package
-computes it with XLA (its ``distance_matrix`` and ``min2``), not a Pallas
-kernel: here it is ``match_kernels.hamming_distance_matrix`` and ``top2``.
-Distances are exact integers, so ``right_idx`` and ``valid`` agree with the
-JAX package exactly, ties to the lower index. With a leading batch axis
+(K_l, K_r) distance matrix (Hamming, or L2 for a float family's block)
+with the rectified row/disparity gate applied inside it, before the
+top-2, ratio test and cross-check, so the nearest neighbour is the best
+epipolar-consistent candidate. The JAX package computes it with XLA (its
+``distance_matrix`` and ``min2``), not a Pallas kernel: here it is
+``matching.distance_matrix`` and ``match_kernels.top2``. Hamming
+distances are exact integers, so ``right_idx`` and ``valid`` agree with
+the JAX package exactly, ties to the lower index. With a leading batch axis
 (the batched stereo step's B pairs) every pair is matched on its own, as
 it would be alone. ``sample_depth_at`` is the
 RGB-D nearest-pixel lookup. ``measure_keypoint_depths`` is the one rule
@@ -22,7 +23,8 @@ import numpy as np
 import torch
 
 from .batch import take_rows
-from .match_kernels import BIG, hamming_distance_matrix, top2
+from .match_kernels import BIG, top2
+from .matching import distance_matrix
 
 _EPS = 1e-9
 
@@ -42,12 +44,12 @@ def stereo_feature_depths(
     cross_check: bool = True,
 ) -> dict:
     """Rectified-stereo depth per left keypoint slot. ``xy_*`` (K, 2) pixels,
-    ``desc_*`` (K, 8) int32 words, ``bf`` the baseline times the focal
+    ``desc_*`` (K, 8) int32 words (or (K, 128) bitcast floats: L2), ``bf`` the baseline times the focal
     length (pixels x metres). Returns dict(z (K_l,) metres, disparity
     (K_l,), right_idx (K_l,) int64, valid (K_l,) bool). With a leading B on
     every input, B pairs at once and every output with the leading B."""
     nb = xy_l.dim() - 2
-    d = hamming_distance_matrix(desc_l, desc_r, valid_l, valid_r)
+    d = distance_matrix(desc_l, desc_r, valid_l, valid_r)
     dv = torch.abs(xy_l[..., :, 1:2] - xy_r[..., None, :, 1])  # (K_l, K_r) row gap
     disp = xy_l[..., :, 0:1] - xy_r[..., None, :, 0]
     gate = (dv <= row_tolerance) & (disp > min_disparity) & (disp < max_disparity)
