@@ -8,6 +8,7 @@ Prints one JSON line per run.
     python scripts/facade_reference.py --impl torch --world deploy --threaded
     python scripts/facade_reference.py --impl torch --world e2e --threaded --reps 10
     python scripts/facade_reference.py --impl torch --world deploy --seeds 0 1 2 --trace
+    python scripts/facade_reference.py --impl jax --world deploy --frames 32 --solver adam --perturb 0 0.000001
 
 The JAX package's figures are the reference that ``chip_smoke.py``'s facade
 gates are set from; the port's CPU run is a rehearsal of the same phase
@@ -38,7 +39,13 @@ def main() -> int:
                     help="reseed the tracker's RANSAC (13 by default) for each run, one JSON line per seed and rep")
     ap.add_argument("--trace", action="store_true",
                     help="add each frame's guided / 3D-2D pairs / PnP inliers ('K': a new keyframe) to the line")
+    ap.add_argument("--solver", choices=("lm_schur", "adam"), default="lm_schur", help="optimization.solver")
+    ap.add_argument("--perturb", type=float, nargs="*", default=[0.0],
+                    help="scale the images by 1 + eps (a rounding-sized change), one run per eps")
+    ap.add_argument("--threads", type=int, default=None, help="torch CPU threads (the port only)")
     args = ap.parse_args()
+
+    import numpy as np
 
     import facade_world as fw
 
@@ -59,6 +66,10 @@ def main() -> int:
         from visual_slam_tpu_torch.utils.metrics import ate_rmse
 
         kw = {"device": "cpu"}
+        if args.threads:
+            import torch
+
+            torch.set_num_threads(args.threads)
 
     if args.world == "deploy":
         frames, K, Ts = fw.deploy_frames(args.frames or 64)
@@ -69,6 +80,8 @@ def main() -> int:
     else:
         frames, K, Ts = fw.endurance_frames(args.frames or 200)
         cfg = fw.endurance_config(Config, args.loop == "on")
+    cfg.optimization.solver = args.solver
+
     def reseed(slam, seed):
         if args.impl == "jax":
             slam.tracking._key = jax.random.PRNGKey(seed)
@@ -76,18 +89,21 @@ def main() -> int:
             slam.tracking._gen.manual_seed(seed)
 
     h, w = frames[0].shape
-    for rep, seed in [(r, s) for r in range(args.reps) for s in (args.seeds or [None])]:
+    runs = [(r, s, e) for r in range(args.reps) for s in (args.seeds or [None]) for e in args.perturb]
+    for rep, seed, eps in runs:
         t0 = time.perf_counter()
         slam = SLAM(PinholeCamera(width=w, height=h, K=K), cfg, threaded=args.threaded, **kw)
         if seed is not None:
             reseed(slam, seed)
         trace = []
-        res = fw.run(slam, frames, on_frame=lambda i, info: trace.append(fw.trace_entry(i, info)))
+        imgs = frames if eps == 0.0 else [f * np.float32(1.0 + eps) for f in frames]
+        res = fw.run(slam, imgs, on_frame=lambda i, info: trace.append(fw.trace_entry(i, info)))
         t1 = time.perf_counter()
         slam.shutdown()
         out = fw.summary(slam, res, Ts, ate_rmse)
         out.update(impl=args.impl, world=args.world, loop=args.loop, threaded=args.threaded, frames=len(frames),
-                   rep=rep, ransac_seed=13 if seed is None else seed, shutdown_s=time.perf_counter() - t1, total_s=time.perf_counter() - t0)
+                   rep=rep, ransac_seed=13 if seed is None else seed, solver=type(slam.optimizer).__name__,
+                   perturb=eps, shutdown_s=time.perf_counter() - t1, total_s=time.perf_counter() - t0)
         if slam.loop_closing is not None:
             out["closed_loops"] = [list(p) for p in slam.loop_closing.closed_loops]
             out["funnel"] = slam.loop_closing.funnel

@@ -12,7 +12,20 @@ winners are held to the same inlier count (within 2), masks that differ in
 at most 2 of 200 entries, costs within a factor 1.5 and poses within 1e-2
 (the 8-point fit on this scene is itself 1e-3 to 7e-3 rad off the true
 rotation in both packages). In float64, on draws without a near-tie among
-the hypotheses, the port reproduces E, R, t and the mask to 1e-9."""
+the hypotheses, the port reproduces E, R, t and the mask to 1e-9.
+
+Rank-deficient draws. The samplers draw with replacement, so about one
+minimal set in seven repeats an index: its 8-point system has rank 7, a
+two-dimensional null space, and which vector of that plane ``eigh``
+returns is the LAPACK build's own choice (MKL's code path on the port's
+side, XLA's on JAX's). After the refits such a hypothesis can win, in
+either package, on one host and not on another. The tests that compare
+the two RANSACs on injected draws therefore feed both packages the same
+draws without those sets (JAX's through its sampler, patched for the
+call); ``_well_posed`` checks that the sets it drops are exactly the
+rank-deficient ones."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -83,12 +96,49 @@ def _draws(key, mask):
     return jepi._sample_minimal_sets(jax.random.split(key, 2)[0], jnp.asarray(mask), 128, 8)
 
 
+def _well_posed(idx, x1, x2):
+    """The minimal sets of ``idx`` (H, 8) whose 8-point system has a
+    one-dimensional null space. The dropped ones are exactly the sets with
+    a repeated index: checked from each set's normalized Gram matrix in
+    float64, whose second-smallest eigenvalue is below 3e-16 of the largest
+    for those and above 3e-9 for every other set of these scenes."""
+    idx = np.asarray(idx)
+    repeated = np.array([len(set(s.tolist())) < 8 for s in idx])
+    w = torch.ones(8, dtype=torch.float64)
+    gaps = []
+    for s in idx:
+        u1, S1 = tepi._hartley_normalize(torch.from_numpy(x1[s].astype(np.float64)), w)
+        u2, S2 = tepi._hartley_normalize(torch.from_numpy(x2[s].astype(np.float64)), w)
+        a, b, c, d = u1[:, 0], u1[:, 1], u2[:, 0], u2[:, 1]
+        A = torch.stack([c * a, c * b, c, d * a, d * b, d, a, b, torch.ones_like(a)], -1).numpy()
+        ev = np.linalg.eigvalsh(A.T @ A)
+        gaps.append(ev[1] / ev[-1])
+    np.testing.assert_array_equal(np.array(gaps) < 1e-12, repeated)
+    return idx[~repeated]
+
+
+@pytest.fixture
+def jax_draws(monkeypatch):
+    """``jax_draws(idx)``: from here on in the test, the JAX package's
+    RANSACs take the minimal sets ``idx`` in place of their sampler's, as
+    the port's take ``sample_idx``. ``ransac_essential`` is jitted anew
+    around a new function object: jit caches its traces by function, and
+    a trace holds the draws it was traced with."""
+    def inject(idx):
+        monkeypatch.setattr(jepi, "_sample_minimal_sets", lambda key, mask, n_hyp, k: jnp.asarray(idx))
+        body = functools.partial(jepi.ransac_essential.__wrapped__)
+        monkeypatch.setattr(jepi, "ransac_essential", jax.jit(body, static_argnames=("n_hyp",)))
+    return inject
+
+
 @pytest.mark.parametrize("seed", [0, 1])
-def test_ransac_essential_with_injected_draws(scene, seed):
+def test_ransac_essential_with_injected_draws(scene, jax_draws, seed):
     x1, x2, mask, _, _ = scene
     key = jax.random.PRNGKey(seed)
-    ref = jepi.ransac_essential(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(mask), key, n_hyp=128)
-    got = tepi.ransac_essential(_t(x1), _t(x2), _t(mask), sample_idx=_t(_draws(key, mask)), n_hyp=128)
+    idx = _well_posed(_draws(key, mask), x1, x2)
+    jax_draws(idx)
+    ref = jepi.ransac_essential(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(mask), key, n_hyp=len(idx))
+    got = tepi.ransac_essential(_t(x1), _t(x2), _t(mask), sample_idx=_t(idx), n_hyp=len(idx))
     np.testing.assert_allclose(_jax_cost(got["E"].numpy(), x1, x2, mask), float(got["score"]), rtol=1e-4)
     assert 1 / 1.5 < float(got["score"]) / float(ref["score"]) < 1.5
     assert np.sum(got["inliers"].numpy() != np.asarray(ref["inliers"])) <= 2
@@ -96,16 +146,21 @@ def test_ransac_essential_with_injected_draws(scene, seed):
 
 
 @pytest.mark.parametrize("seed", [2, 4])
-def test_estimate_motion_2d2d_float64_matches_exactly(scene, seed):
+def test_estimate_motion_2d2d_float64_matches_exactly(scene, jax_draws, seed):
     """In float64 and without a near-tie among the hypotheses, the port
-    reproduces the JAX package's essential matrix and pose to rounding."""
+    reproduces the JAX package's essential matrix and pose to rounding.
+    A rank-deficient draw's hypothesis is host-arbitrary, not tied: seed
+    4's draws hold 21 such sets, one of which won on one host and not on
+    another (module docstring), so both packages take the well-posed
+    draws."""
     x1, x2, mask, _, _ = scene
     x1, x2 = x1.astype(np.float64), x2.astype(np.float64)
     with jax.enable_x64(True):
         key = jax.random.PRNGKey(seed)
-        ref = jepi.estimate_motion_2d2d(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(mask), key, n_hyp=128)
-        idx = np.asarray(_draws(key, mask))
-    got = tepi.estimate_motion_2d2d(_t(x1), _t(x2), _t(mask), sample_idx=_t(idx), n_hyp=128)
+        idx = _well_posed(_draws(key, mask), x1, x2)
+        jax_draws(idx)
+        ref = jepi.estimate_motion_2d2d(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(mask), key, n_hyp=len(idx))
+    got = tepi.estimate_motion_2d2d(_t(x1), _t(x2), _t(mask), sample_idx=_t(idx), n_hyp=len(idx))
     _same_up_to_sign(got["E"].numpy(), ref["E"], atol=1e-9)
     np.testing.assert_allclose(got["R"].numpy(), np.asarray(ref["R"]), atol=1e-9)
     np.testing.assert_allclose(got["t"].numpy(), np.asarray(ref["t"]), atol=1e-9)
@@ -125,10 +180,15 @@ def test_ransac_fundamental_with_injected_draws(scene):
 
 def test_own_draws_find_the_motion(scene):
     """Without injected draws the port's own generator finds the same
-    motion (the distribution, not the bits, is what carries over)."""
+    motion (the distribution, not the bits, is what carries over). The
+    winner here is a float32 near-tie: hypotheses 78 and 7 of these draws
+    end 1.7% apart in cost, in poses 1.39e-2 and 0.44e-2 from the true R,
+    and MKL's code path decides which wins (1.39e-2 with this AMD EPYC's
+    default path; 0.44e-2 with MKL_CBWR=COMPATIBLE, AVX, AVX2 or AVX512).
+    R is held to twice that spread, 1.9e-2."""
     x1, x2, mask, R, t = scene
     res = tepi.estimate_motion_2d2d(_t(x1), _t(x2), _t(mask), torch.Generator().manual_seed(0), n_hyp=128)
-    np.testing.assert_allclose(res["R"].numpy(), R, atol=1e-2)
+    np.testing.assert_allclose(res["R"].numpy(), R, atol=1.9e-2)
     assert float(res["t"].numpy() @ t) > 0.999
     assert int(res["n_inliers"]) > 0.65 * mask.sum()
 

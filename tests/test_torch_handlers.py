@@ -4,7 +4,8 @@
 (the JAX facade after 6 frames of test_slam_e2e.py's world): the same
 keyframes and landmarks solved, BA cost0 and cost within 1e-4 relative,
 keyframe poses within 1e-4 and landmarks within 1e-4 + 1e-4 relative (the
-dense LM/Schur solve in f32, tests/test_torch_ba.py's tolerance). The
+dense LM/Schur solve in f32, tests/test_torch_ba.py's tolerance), up to the
+window's free mono scale where only one keyframe is fixed. The
 global handler's solve, ``Map.optimize_global`` (the BA after a loop
 closure), on tests/loop_world.py's drifted 16-keyframe ring map, checked
 the same way, the mono gauge similarity it records included. Its links
@@ -41,21 +42,41 @@ from visual_slam_tpu_torch.ops.matching import match_descriptors
 RTOL = 1e-4
 
 
-def _same_solve(jres, tres, jm, tm):
+def _same_solve(jres, tres, jm, tm, free_scale=False):
+    """``free_scale``: the solve fixed one keyframe only, so the mono scale
+    is a null direction of its cost, along which f32 LM steps random-walk
+    (``LMOptimizer._reimpose_mono_gauge``). The port's map is then first
+    brought to the JAX map's scale about the fixed keyframe's centre (the
+    median ratio of the landmarks' distances from it, at most 1e-3 from 1),
+    and compared as before."""
     for key in ("cost0", "cost"):
         assert abs(tres[key] - jres[key]) <= RTOL * abs(jres[key]), (key, tres[key], jres[key])
     assert (tres["n_points"], tres["n_keyframes"], tres["n_trimmed"]) == (
         jres["n_points"], jres["n_keyframes"], jres["n_trimmed"])
-    np.testing.assert_allclose(np.stack([k.T_w2c for k in tm.get_keyframes()]),
-                               np.stack([k.T_w2c for k in jm.get_keyframes()]), atol=1e-4)
+    Tt = np.stack([k.T_w2c for k in tm.get_keyframes()])
+    Tj = np.stack([k.T_w2c for k in jm.get_keyframes()])
     tp = {p.id: p.position for p in tm.get_map_points()}
     jp = {p.id: p.position for p in jm.get_map_points()}
     assert sorted(tp) == sorted(jp)
-    np.testing.assert_allclose(np.stack([tp[i] for i in sorted(tp)]), np.stack([jp[i] for i in sorted(jp)]),
-                               rtol=1e-4, atol=1e-4)
+    Xt, Xj = np.stack([tp[i] for i in sorted(tp)]), np.stack([jp[i] for i in sorted(jp)])
+    if free_scale:
+        c0 = -Tj[0, :3, :3].T @ Tj[0, :3, 3]
+        s = np.median(np.linalg.norm(Xt - c0, axis=1) / np.linalg.norm(Xj - c0, axis=1))
+        assert abs(s - 1.0) <= 1e-3, s
+        Xt = c0 + (Xt - c0) / s
+        centres = c0 + (-np.einsum("kji,kj->ki", Tt[:, :3, :3], Tt[:, :3, 3]) - c0) / s
+        Tt = Tt.copy()
+        Tt[:, :3, 3] = -np.einsum("kij,kj->ki", Tt[:, :3, :3], centres)
+    np.testing.assert_allclose(Tt, Tj, atol=1e-4)
+    np.testing.assert_allclose(Xt, Xj, rtol=1e-4, atol=1e-4)
 
 
 def test_local_handler_step_matches_jax():
+    """Compared up to the window's free mono scale (``_same_solve``). On
+    an AMD EPYC (Zen 4, MKL 2024.2) the packages' maps differed by that
+    scale alone, 1.6e-4 (1.4e-4 with MKL_CBWR=COMPATIBLE): every landmark
+    farther from the fixed keyframe by that share, 2.0e-3 at 10.5 m, and
+    1.6e-5 across the rays, at costs 6e-6 apart."""
     torch.set_num_threads(2)
     frames, _, K = fp.world()
     jcfg, cfg = fp.configs()
@@ -65,7 +86,7 @@ def test_local_handler_step_matches_jax():
     ts.local_handler.step()
     jres, tres = js.local_handler.last_result, ts.local_handler.last_result
     assert np.isfinite(tres["cost"]) and tres["cost"] <= tres["cost0"]
-    _same_solve(jres, tres, js.map, ts.map)
+    _same_solve(jres, tres, js.map, ts.map, free_scale=True)
     assert abs(tres["reproj_after_px"] - jres["reproj_after_px"]) <= 1e-3
 
 

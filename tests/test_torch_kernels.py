@@ -274,6 +274,52 @@ def test_hamming_top2_kernel_tile_edges(cuda, k1, k2):
         assert torch.equal(a, b)
 
 
+def _wide_fixture(rng, k1, k2):
+    """``_tile_fixture`` at a train block past 5800 rows (the 13-bit column
+    of the old 32-bit row partial ended at 8191): the last column ties
+    column 1 (argbest stays 1, second == best), column k2 - 2 is query 3's
+    exact match, and where k2 > 8192 column 8192 is query 4's."""
+    d1, d2, v1, v2 = _tile_fixture(rng, k1, k2)
+    d2[k2 - 1] = d2[1]
+    d1[3] = d2[k2 - 2]
+    v1[3] = v2[1] = v2[k2 - 2] = v2[k2 - 1] = True
+    if k2 > 8192 and k1 > 4:
+        d1[4] = d2[8192]
+        v1[4] = v2[8192] = True
+    return d1, d2, v1, v2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k1,k2", [(2000, 5801), (2000, 8192), (64, 65536)])
+def test_hamming_top2_kernel_wide_train_blocks(cuda, k1, k2):
+    """K2 past the 5800 train rows it used to take, up to 65536: exact
+    against the plain version, ties across tile edges included."""
+    rng = np.random.default_rng(k2)
+    d1, d2, v1, v2 = _wide_fixture(rng, k1, k2)
+    args = [_i32(d1).to(cuda), _i32(d2).to(cuda), torch.from_numpy(v1).to(cuda), torch.from_numpy(v2).to(cuda)]
+    out = mk.hamming_top2(*args)
+    torch.cuda.synchronize()
+    ref = mk.hamming_top2_ref(*args)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert int(out[2][3]) == k2 - 2 and float(out[0][3]) == 0.0
+
+
+@pytest.mark.cuda
+def test_hamming_top2_batched_kernel_wide_train_blocks(cuda):
+    """K4 with C = 8 candidate blocks of 8192 rows, one of them padding:
+    exact against the plain version."""
+    rng = np.random.default_rng(8)
+    d1, d2, v1, v2 = _wide_fixture(rng, 2000, 8192)
+    blocks = np.stack([d2] + [_packed(rng, 8192) for _ in range(7)])
+    valid = np.stack([v2] + [rng.random(8192) > 0.1 for _ in range(6)] + [np.zeros(8192, bool)])
+    args = [_i32(d1).to(cuda), _i32(blocks).to(cuda), torch.from_numpy(v1).to(cuda), torch.from_numpy(valid).to(cuda)]
+    out = mk.hamming_top2_batched(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(out, mk.hamming_top2_batched_ref(*args)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_hamming_top2_kernel_all_invalid(cuda):
     """All-invalid rows, columns and whole candidates, beside real ones:

@@ -63,10 +63,13 @@ constexpr int kTile = 64;                   // query rows and train columns of a
 constexpr int kThreads = 128;               // 4 warps, 2 x 2 over the tile, 32 x 32 each
 constexpr int kRowWords = (256 + 16) / 4;   // one unpacked descriptor, padded: conflict-free fragment loads
 constexpr int kPackBig = 257;               // kBigD in a packed row partial
-constexpr int kArgBits = 13;                // argbest < 8192 in a packed row partial
 
-__device__ __forceinline__ int pack_row(const Top2& t) {
-  return (min(t.best, kPackBig) << (9 + kArgBits)) | (min(t.second, kPackBig) << kArgBits) | t.arg;
+// A row partial in 64 bits: best and second (9 bits each, kBigD as 257)
+// above the argbest column in the low 32, so any train block the grid
+// takes fits (a 32-bit packing held the column to 13 bits, K2 < 8192).
+__device__ __forceinline__ long long pack_row(const Top2& t) {
+  return (static_cast<long long>(min(t.best, kPackBig)) << 41) |
+         (static_cast<long long>(min(t.second, kPackBig)) << 32) | static_cast<unsigned>(t.arg);
 }
 
 __device__ __forceinline__ int unpack_d(int v) { return v == kPackBig ? kBigD : v; }
@@ -82,7 +85,7 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], cons
 __global__ void __launch_bounds__(kThreads) hamming_tile_kernel(
     const int* __restrict__ q, const unsigned char* __restrict__ qv, int K1,
     const int* __restrict__ t, const unsigned char* __restrict__ tv, int K2, int paired,
-    int* __restrict__ rowpart, int* __restrict__ colpart, unsigned char* __restrict__ active) {
+    long long* __restrict__ rowpart, int* __restrict__ colpart, unsigned char* __restrict__ active) {
   __shared__ __align__(16) uint32_t s_bits[2][kTile * kRowWords];  // query, train: byte b of a row = bit b
   __shared__ int s_pop[2][kTile];                                   // popcount, -1 where invalid
   __shared__ int s_rb[2][kTile], s_rs[2][kTile], s_ra[2][kTile];    // row partials of the two column halves
@@ -240,7 +243,7 @@ __global__ void __launch_bounds__(kThreads) hamming_tile_kernel(
 constexpr int kFinishThreads = 256;
 
 __global__ void __launch_bounds__(kFinishThreads) hamming_finish_kernel(
-    const int* __restrict__ rowpart, const int* __restrict__ colpart, const unsigned char* __restrict__ active,
+    const long long* __restrict__ rowpart, const int* __restrict__ colpart, const unsigned char* __restrict__ active,
     int K1, int K2, int n_rt, int n_ct, int L, float* __restrict__ best, float* __restrict__ second,
     int* __restrict__ arg, int* __restrict__ colarg) {
   const int sub = threadIdx.x & (L - 1);
@@ -254,8 +257,9 @@ __global__ void __launch_bounds__(kFinishThreads) hamming_finish_kernel(
     const unsigned char* ai = act + (x / kTile) * n_ct;
     for (int j = sub; j < n_ct; j += L) {
       if (ai[j]) {
-        const int p = rowpart[(cand * n_ct + j) * K1 + x];
-        top.merge(unpack_d(p >> (9 + kArgBits)), unpack_d((p >> kArgBits) & 511), p & ((1 << kArgBits) - 1));
+        const long long p = rowpart[(cand * n_ct + j) * K1 + x];
+        top.merge(unpack_d(static_cast<int>(p >> 41)), unpack_d(static_cast<int>((p >> 32) & 511)),
+                  static_cast<int>(p & 0xffffffffLL));
       }
     }
   }
@@ -287,12 +291,14 @@ __global__ void __launch_bounds__(kFinishThreads) hamming_finish_kernel(
 // q: (K1, 8) int32 words, qv: (K1,) bool, or (C, K1, 8) and (C, K1) when
 // paired is nonzero; t: (C, K2, 8), tv: (C, K2) bool.
 // Outputs: best, second (C, K1) f32; arg (C, K1) int32; colarg (C, K2) int32.
-// Scratch: rowpart (C, ceil(K2/64), K1) int32, colpart (C, ceil(K1/64), K2)
-// int32, active (C, ceil(K1/64), ceil(K2/64)) uint8. Needs K1*257 < 2^31,
-// K2 < 8192 and C <= 65535. Returns cudaGetLastError() after the launches.
+// Scratch: rowpart (C, ceil(K2/64), K1) int64, colpart (C, ceil(K1/64), K2)
+// int32, active (C, ceil(K1/64), ceil(K2/64)) uint8. Needs K1*257 < 2^31
+// (the column minimum's d*K1 + row), ceil(K2/64) <= 65535 (the grid's y:
+// K2 up to 4,194,240 rows), C <= 65535 and C*K2 < 2^31. Returns
+// cudaGetLastError() after the launches.
 extern "C" int vslam_hamming_top2(const int* q, const unsigned char* qv, int K1, const int* t,
                                   const unsigned char* tv, int K2, int C, int paired, float* best, float* second,
-                                  int* arg, int* colarg, int* rowpart, int* colpart, unsigned char* active,
+                                  int* arg, int* colarg, long long* rowpart, int* colpart, unsigned char* active,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_rt = (K1 + kTile - 1) / kTile, n_ct = (K2 + kTile - 1) / kTile;

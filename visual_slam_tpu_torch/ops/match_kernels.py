@@ -149,7 +149,7 @@ def _launch_hamming_top2(name, desc_q, desc_c, valid_q, valid_c, paired: bool = 
         ("valid_q", valid_q, torch.bool, qb + (K1,)),
         ("valid_c", valid_c, torch.bool, (C, K2)),
     ))
-    if not (0 < K1 and 257 * K1 < _INT_MAX and 0 < K2 <= 5800 and 0 < C <= 65535 and C * K2 < _INT_MAX):
+    if not (0 < K1 and 257 * K1 < _INT_MAX and 0 < K2 <= _TILE * 65535 and 0 < C <= 65535 and C * K2 < _INT_MAX):
         raise ValueError(f"{name}: sizes K1={K1}, C={C}, K2={K2} out of the kernel's range")
     n_rt, n_ct = -(-K1 // _TILE), -(-K2 // _TILE)
     best = torch.empty((C, K1), dtype=torch.float32, device=dev)
@@ -158,7 +158,7 @@ def _launch_hamming_top2(name, desc_q, desc_c, valid_q, valid_c, paired: bool = 
     colarg = torch.empty((C, K2), dtype=torch.int32, device=dev)
     # Scratch: each active 64 x 64 tile's row and column partials, and
     # which tiles were active (the others are never read).
-    rowpart = torch.empty((C, n_ct, K1), dtype=torch.int32, device=dev)
+    rowpart = torch.empty((C, n_ct, K1), dtype=torch.int64, device=dev)
     colpart = torch.empty((C, n_rt, K2), dtype=torch.int32, device=dev)
     active = torch.empty((C, n_rt, n_ct), dtype=torch.uint8, device=dev)
     rc = _build.lib().vslam_hamming_top2(

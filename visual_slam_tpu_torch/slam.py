@@ -14,8 +14,10 @@ under the map lock, as in the JAX package.
 
 ``save(path)`` checkpoints the map and the tracking context in the JAX
 package's format; ``SLAM.resume(path, camera, device=...)`` goes on from a
-checkpoint of either package. ``optimization.solver="adam"`` belongs to
-ROADMAP M13 and raises ``NotImplementedError``.
+checkpoint of either package. ``optimization.solver="adam"`` builds the
+``AdamOptimizer`` (``backend/adam.py``) in place of the ``LMOptimizer``, as
+the JAX package does; ``CompiledSLAM`` and ``PipelinedVO`` keep the LM
+whatever ``solver`` says, as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -47,13 +49,16 @@ class SLAM:
         self.logger = get_logger("slam", log_dir=log_dir)
         if self.config.feature.ragged_descriptors:
             raise NotImplementedError("ragged descriptors are not ported: they exist for the TPU's tiling")
-        if self.config.optimization.solver == "adam":
-            raise NotImplementedError("the Adam bundle adjustment (backend/adam.py) is not ported yet: ROADMAP M13")
 
         dev = self.device
         self.feature_tracker = FeatureTracker(self.config.feature, device=dev)
         self.map = Map(max_frames=self.config.map.max_frames)
-        self.optimizer = LMOptimizer(self.config, camera, logger=get_logger("optimizer", log_dir), device=dev)
+        if self.config.optimization.solver == "adam":
+            from .backend.adam import AdamOptimizer
+
+            self.optimizer = AdamOptimizer(self.config, camera, logger=get_logger("optimizer", log_dir), device=dev)
+        else:
+            self.optimizer = LMOptimizer(self.config, camera, logger=get_logger("optimizer", log_dir), device=dev)
         sensor = SensorType[self.config.camera.sensor_type.upper()]
         self.local_mapping = LocalMapping(camera, self.config, self.map, self.feature_tracker, sensor_type=sensor,
                                           logger=get_logger("local_mapping", log_dir), threaded=threaded, device=dev)
