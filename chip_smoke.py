@@ -230,7 +230,26 @@
       K2_WIDE_ROWS train rows, exact against their plain versions, and
       ``FlannMatcher``'s exact route at FLANN_EXACT_ROWS binary train rows,
       the card exactly as the CPU.
-12. Loop pipeline (tests/loop_pipeline_world.py): bench_loop_pipeline's
+12. Dataset entry point (``run_dataset``, tests/dataset_world.py), one JSON
+   line per part: the deploy world's first RD_FRAMES frames written as 8-bit
+   PNG files (numpy + zlib) with a KITTI calib.txt; the native loader built
+   from native/loader.cpp, ``decode_image`` and ``NativeDatasetSource`` held
+   to the written arrays exactly; examples/run_dataset_torch.py through the
+   loader on the card (RD_ARGS: 2000 features, 4 levels) and the same uint8
+   frames from memory through the same ``Processing`` and config: the same
+   states and keyframe centres within RD_POSE_ATOL, no decode error, the
+   exports loaded back (TUM and KITTI rows within RD_EXPORT_ATOL of the
+   keyframe poses, map.npz onto the card, one PLY vertex per good
+   landmark), K1-K3 launched; the deploy run's outcome and keyframe ATE
+   classed and printed beside the JAX package's CPU run (RD_JAX), with FPS
+   from PNG and from memory after the bootstrap. The ATE and state gates
+   read the 320x240 PNG world (SMALL_ARGS): OK, no LOST frame, at least 2
+   keyframes, keyframe ATE <= max(2 x JAX's, RD_ATE_PCT_FLOOR) (RD_SMALL_JAX;
+   RD_JAX's comment says why). Then examples/visual_odometry_demo_torch.py
+   with ``device_trace`` around two of its frames (the trace must name K1,
+   K2 and K3: the profiler sees the ctypes launches), and ``flops_of`` /
+   ``mfu`` of one LM solve at bench.py's W 10, M 4096 (products only).
+13. Loop pipeline (tests/loop_pipeline_world.py): bench_loop_pipeline's
    deployment through ``CompiledSLAM`` on the card, one JSON line per run:
    the 200-frame ring at 376x1240 around 2400 sprites with noise and
    brightness drift, 2000 features, self-promoting chunks of 8, a heavy
@@ -266,13 +285,14 @@
    LP_JAX's comment's. K4 is then held exactly against its plain version on
    the arguments of the on pass's detect with the most real candidate
    blocks (its shortlist) and timed.
-13. Prints a JSON line of the kernels, then ``{"ok": true, "device": ...}``
+14. Prints a JSON line of the kernels, then ``{"ok": true, "device": ...}``
    as the last line. Any failure raises and exits nonzero.
 
 K5 has no caller in either package: only phase 3 launches it. The
 kernels' launch counts add up the tracking, stereo step, loop,
 full-pipeline, stereo pipeline, facade, stereo facade, feature-family (its
-detectors and facade runs), adam (its facade run) and loop pipeline phases; the batched rows' count the batched VO phase's batched steps, the
+detectors and facade runs), adam (its facade run), dataset (its runs and the
+demo) and loop pipeline phases; the batched rows' count the batched VO phase's batched steps, the
 B = 2 row's the stereo facade phases', the stereo step's and the stereo
 pipeline's pairs, the B = 8 row's the batched
 stereo step's, the RGB-D rows' the RGB-D facade phases' and the RGB-D
@@ -479,6 +499,26 @@ ADAM_ITERS, ADAM_LR, ADAM_LM_ITERS, ADAM_REPS, ADAM_PROFILE_ITERS = 150, 1e-3, 2
 ADAM_FRAMES = 32
 ADAM_JAX_DEPLOY_ATE_PCT = 0.7142382081237795
 ADAM_E2E_FRAMES, ADAM_E2E_JAX_ATE_M = 12, 0.23079223256077538
+# The dataset phase (run_dataset): the deploy world's first RD_FRAMES frames as
+# PNG files through examples/run_dataset_torch.py with RD_ARGS, and the 320x240
+# render_sequence world of tests/dataset_world.py (SMALL_ARGS). RD_JAX /
+# RD_SMALL_JAX: the JAX package's examples/run_dataset.py on the CPU over the
+# same files with the same flags and --cpu (each OK, no LOST frame), keyframe
+# ATE in % of the path (scripts/run_dataset_reference.py). JAX loses the deploy
+# files at rounding-sized changes (scripts/facade_reference.py --world dataset,
+# RANSAC seeds 13, 0-3, images scaled by 1 and 1 +- 1e-6: 2 LOST and 2 scale
+# jumps in 15 runs, and 4 of the 11 clean runs above 2 %), so the ATE and state
+# gates read the small world, as the feature-family and adam phases do for
+# worlds JAX loses; the deploy run is classed and printed beside JAX's.
+RD_FRAMES = 32
+RD_ARGS = ["--native-loader", "--levels", "4", "--frames", str(RD_FRAMES)]
+RD_JAX = {"ate_pct": 0.8382562790297425, "keyframes": 13, "map_points": 1164}
+RD_SMALL_JAX = {"ate_pct": 1.7530640437257685, "keyframes": 7, "map_points": 463}
+RD_ATE_PCT_FLOOR = 2.0
+RD_POSE_ATOL = 1e-5  # m, native against in-memory keyframe centres (expected identical)
+RD_EXPORT_ATOL = 1e-5  # the TUM and KITTI rows against the keyframe poses
+RD_TRACE_AFTER = 9  # the demo's frames traced start after this one: two, or until K1-K3 have each launched
+RD_KERNEL_NAMES = {"K1": "patches_moments_kernel", "K2": "hamming_tile_kernel", "K3": "guided_top2_kernel"}
 # (c) K2 and K4 past the 5800 train rows the 32-bit row partial held them
 # to: K2 at 2000 queries against each of K2_WIDE_ROWS train rows, K4 with
 # K4_WIDE_C candidate blocks of those rows, both exact against their plain
@@ -2900,7 +2940,7 @@ def run_facade_phases(torch, np, dev, counters):
         def get_frame_shape(self):
             return self.imgs[0].shape
 
-    out, states = run_processing(torch, np, dev, counters, Frames(frames[:PROCESSING_FRAMES]), K,
+    out, states, _ = run_processing(torch, np, dev, counters, Frames(frames[:PROCESSING_FRAMES]), K,
                                  fw.deploy_config(Config))
     add([fn.launches for fn in counters][:4] + [0])
     boot = next(i for i, (s, _) in enumerate(states) if s == "OK")
@@ -3080,7 +3120,7 @@ def run_depth_facade_phases(torch, np, dev, counters, rgbd_world):
         "rgbd": (Frames(imgs[:n], depths[:n]), rK, None, dw.rgbd_config),
     }
     for sensor, (source, K, p1, config) in sources.items():
-        out, states = run_processing(torch, np, dev, counters, source, K, config(Config), p1)
+        out, states, _ = run_processing(torch, np, dev, counters, source, K, config(Config), p1)
         r = {"k1_single": k1.fns[0].launches, "k1_batched": k1.fns[1].launches,
              "launches": [fn.launches for fn in counters][:4]}
         add(sensor, r)
@@ -3290,11 +3330,12 @@ def run_feature_families(torch, np, dev, counters, card):
     return total
 
 
-def run_processing(torch, np, dev, counters, source, K, cfg, p1_tx=None):
+def run_processing(torch, np, dev, counters, source, K, cfg, p1_tx=None, on_frame=None):
     """``Processing`` over ``source`` with a KITTI ``calib.txt`` holding K as
     P0 and, for stereo, P1 with ``p1_tx`` (-baseline x fx) as its fourth
-    entry. Returns (run()'s result, (state, T_w2c or None) per frame); the
-    counters are zeroed first."""
+    entry; ``on_frame(i, info)`` goes to ``run()``. Returns (run()'s result,
+    (state, T_w2c or None) per frame, the ``SLAM``); the counters are zeroed
+    first."""
     import tempfile
 
     from visual_slam_tpu_torch.processing import Processing
@@ -3318,9 +3359,9 @@ def run_processing(torch, np, dev, counters, source, K, cfg, p1_tx=None):
         return info
 
     slam.track = track_logged
-    out = proc.run()
+    out = proc.run(on_frame=on_frame)
     torch.cuda.synchronize()
-    return out, states
+    return out, states, slam
 
 
 def watch_loop_closing(torch, slam, stats):
@@ -3934,6 +3975,245 @@ def run_adam(torch, np, dev, counters, card) -> list[int]:
     return launches
 
 
+def _example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_dataset(torch, np, dev, counters, card) -> list[int]:
+    """Phase 12 (the module docstring's item 12): the deploy world's PNG
+    files through the native loader and from memory, the exports, the 320x240
+    PNG world's state and ATE gates, the demo traced, and one LM solve's
+    FLOPs. Returns the phase's K1-K5 launches."""
+    import contextlib
+    import tempfile
+
+    import ba_world
+    import dataset_world as dsw
+    import facade_world as fw
+
+    from visual_slam_tpu_torch.backend.ba import BAProblem, bundle_adjust
+    from visual_slam_tpu_torch.io import native
+    from visual_slam_tpu_torch.io.source import DataSourceBase
+    from visual_slam_tpu_torch.utils import profiling
+    from visual_slam_tpu_torch.utils.metrics import ate_rmse
+    from visual_slam_tpu_torch.utils.serialization import load_map, load_trajectory_tum
+    from visual_slam_tpu_torch.utils.tree import to_device
+
+    t_phase = time.perf_counter()
+    total = [0] * len(counters)
+
+    def launches() -> list[int]:
+        now = [fn.launches for fn in counters]
+        for k, n in enumerate(now):
+            total[k] += n
+        return now
+
+    rd, demo = _example("run_dataset_torch"), _example("visual_odometry_demo_torch")
+    fails = []
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        d = Path(d)
+        t0 = time.perf_counter()
+        images, calib, u8, K, Ts = dsw.deploy_dataset(d / "seq", RD_FRAMES)
+        write_s = time.perf_counter() - t0
+        png_bytes = sum(p.stat().st_size for p in images.iterdir())
+        t0 = time.perf_counter()
+        native._compile(force=True)
+        native.get_lib()
+        build_s = time.perf_counter() - t0
+
+        # The loader against the written arrays, exactly.
+        fps = rd.make_config(rd.parse_args([str(images)])).camera.fps
+        paths = sorted(images.glob("*.png"))
+        decode_bad = [i for i, path in enumerate(paths) if not np.array_equal(native.decode_image(path), u8[i])]
+        src = native.NativeDatasetSource(images, fps=fps)
+        source_bad = []
+        for i in range(RD_FRAMES):
+            f, ts = src.get_frame()
+            if f is None or f.dtype != np.float32 or not np.array_equal(f, u8[i].astype(np.float32)) or ts != i / fps:
+                source_bad.append(i)
+        loader_errors = src.decode_errors()
+        src.release()
+        log(json.dumps({"phase": "dataset_loader", "frames": len(paths), "shape": list(u8.shape[1:]),
+                        "png_bytes": png_bytes, "write_s": write_s, "build_s": build_s,
+                        "lib": str(native._LIB.relative_to(ROOT)), "decode_mismatches": decode_bad,
+                        "source_mismatches": source_bad, "decode_errors": loader_errors}))
+        if decode_bad or source_bad or loader_errors:
+            raise AssertionError(f"native loader: decode mismatches {decode_bad}, source mismatches {source_bad}, "
+                                 f"decode errors {loader_errors}")
+
+        # examples/run_dataset_torch.py through the native loader, on the card.
+        argv = [str(images), str(calib), *RD_ARGS, "--out-dir", str(d / "out")]
+        for fn in counters:
+            fn.launches = 0
+        gc.collect()
+        png = rd.main(argv)
+        torch.cuda.synchronize()
+        png_launches = launches()
+
+        # The same uint8 frames from memory, with the loader's timestamps.
+        class Memory(DataSourceBase):
+            def __init__(self):
+                self.i = 0
+
+            def get_frame(self):
+                self.i += 1
+                return u8[self.i - 1], (self.i - 1) / fps
+
+            def is_ok(self):
+                return self.i < RD_FRAMES
+
+            def get_frame_shape(self):
+                return u8.shape[1:]
+
+        done_at = []
+        mem, mem_states, mem_slam = run_processing(torch, np, dev, counters, Memory(), K,
+                                                   rd.make_config(rd.parse_args(argv)),
+                                                   on_frame=lambda i, info: done_at.append(time.perf_counter()))
+        mem_launches = launches()
+        mem_states = [st for st, _ in mem_states]
+        mem_boot = next((i for i, st in enumerate(mem_states) if st == "OK"), RD_FRAMES)
+        mem_fps = (RD_FRAMES - mem_boot - 1) / (done_at[-1] - done_at[mem_boot]) if mem_boot < RD_FRAMES - 1 else 0.0
+
+        kf_png, kf_mem = png["slam"].map.get_keyframes(), mem_slam.map.get_keyframes()
+        c_png = np.stack([kf.camera_center for kf in kf_png])
+        pose_diff = (float(np.abs(c_png - np.stack([kf.camera_center for kf in kf_mem])).max())
+                     if len(kf_png) == len(kf_mem) else float("inf"))
+        ate = fw.ate(ate_rmse, [kf.timestamp for kf in kf_png], [kf.T_w2c for kf in kf_png], Ts, dt=1.0 / fps)
+        lost = png["states"][png["boot_frame"]:].count("LOST")
+        outcome = ("LOST" if lost or png["state"] != "OK" else "scale jump" if ate["pct"] > FACADE_JUMP_PCT
+                   else "clean")
+
+        # The exports, loaded back.
+        ex = png["exports"]
+        T_c2w = np.linalg.inv(np.stack([kf.T_w2c for kf in kf_png]))
+        _, tum_T = load_trajectory_tum(ex["trajectory_tum.txt"])
+        kitti = np.loadtxt(ex["trajectory_kitti.txt"]).reshape(-1, 3, 4)
+        tum_err = float(np.abs(tum_T - T_c2w).max()) if tum_T.shape == T_c2w.shape else float("inf")
+        kitti_err = float(np.abs(kitti - T_c2w[:, :3]).max()) if len(kitti) == len(T_c2w) else float("inf")
+        loaded = load_map(ex["map.npz"], device=dev)
+        lkfs = loaded.get_keyframes()
+        npz_ok = (len(lkfs) == len(kf_png) and all(np.array_equal(a.T_w2c, b.T_w2c) for a, b in zip(lkfs, kf_png))
+                  and all(kf.features[0].xy.device.type == "cuda" for kf in lkfs))
+        good = sum(not mp.is_bad for mp in png["slam"].map.get_map_points())
+        ply = ex["map.ply"].read_text().splitlines()
+        ply_vertices = int(ply[2].split()[-1])
+        row = {"phase": "run_dataset", "card": card, "frames": png["frames"], "state": png["state"],
+               "memory_state": mem["state"], "boot_frame": png["boot_frame"], "memory_boot_frame": mem_boot,
+               "lost": lost, "memory_lost": mem_states.count("LOST"),
+               "decode_errors": png["decode_errors"], "keyframes": png["keyframes"],
+               "memory_keyframes": mem["keyframes"], "map_points": png["map_points"],
+               "memory_map_points": mem["map_points"], "keyframe_centre_max_diff_m": pose_diff,
+               "ate_keyframes": ate, "outcome": outcome, "jax": RD_JAX, "fps_after_boot_png": png["fps_after_boot"],
+               "fps_after_boot_memory": mem_fps, "tum_max_err": tum_err, "kitti_max_err": kitti_err,
+               "map_npz_on_card": npz_ok, "ply_vertices": ply_vertices, "good_landmarks": good,
+               "launches_png": png_launches, "launches_memory": mem_launches}
+        log(json.dumps(row, default=float))
+        log(f"run_dataset, {RD_FRAMES} PNG frames {list(u8.shape[1:])}: FPS after the bootstrap {png['fps_after_boot']:.2f} "
+            f"from PNG, {mem_fps:.2f} from memory ({card}); {outcome}, keyframe ATE {ate['pct']:.4f} % (JAX's CPU "
+            f"run {RD_JAX['ate_pct']:.4f} %); native against memory keyframe centres {pose_diff:.3g} m")
+        if png["states"] != mem_states or png["state"] != mem["state"]:
+            fails.append(f"states: PNG {png['state']} {png['states']}, memory {mem['state']} {mem_states}")
+        if png["decode_errors"]:
+            fails.append(f"{png['decode_errors']} decode errors")
+        if not pose_diff <= RD_POSE_ATOL:
+            fails.append(f"native and in-memory keyframe centres {pose_diff} m apart ({len(kf_png)} and "
+                         f"{len(kf_mem)} keyframes)")
+        if not (tum_err <= RD_EXPORT_ATOL and kitti_err <= RD_EXPORT_ATOL and npz_ok and ply_vertices == good
+                and len(ply) == 10 + good):
+            fails.append(f"exports: TUM {tum_err}, KITTI {kitti_err}, map.npz {npz_ok}, PLY {ply_vertices} vertices "
+                         f"against {good} landmarks")
+        for name, n in (("PNG", png_launches), ("memory", mem_launches)):
+            if n[0] < RD_FRAMES or not n[1] or not n[2]:
+                fails.append(f"{name} run launched K1-K3 {n[:3]} times over {RD_FRAMES} frames")
+        del png, mem_slam, loaded
+        gc.collect()
+
+        # The small world: its state and ATE gates.
+        s_images, s_calib, _, _, s_Ts = dsw.small_dataset(d / "small")
+        for fn in counters:
+            fn.launches = 0
+        small = rd.main([str(s_images), str(s_calib), "--native-loader", *dsw.SMALL_ARGS, "--out-dir", str(d / "small_out")])
+        torch.cuda.synchronize()
+        small_launches = launches()
+        kfs = small["slam"].map.get_keyframes()
+        s_ate = fw.ate(ate_rmse, [kf.timestamp for kf in kfs], [kf.T_w2c for kf in kfs], s_Ts, dt=1.0 / fps)
+        s_gate = max(2 * RD_SMALL_JAX["ate_pct"], RD_ATE_PCT_FLOOR)
+        s_lost = small["states"].count("LOST")
+        log(json.dumps({"phase": "run_dataset_small", "card": card, "frames": small["frames"], "state": small["state"],
+                        "boot_frame": small["boot_frame"], "lost": s_lost, "decode_errors": small["decode_errors"],
+                        "keyframes": small["keyframes"], "map_points": small["map_points"], "ate_keyframes": s_ate,
+                        "ate_gate_pct": s_gate, "jax": RD_SMALL_JAX, "fps_after_boot": small["fps_after_boot"],
+                        "launches": small_launches}, default=float))
+        if small["state"] != "OK" or s_lost or small["keyframes"] < 2 or small["decode_errors"]:
+            fails.append(f"small world: {small['state']}, {s_lost} LOST, {small['keyframes']} keyframes, "
+                         f"{small['decode_errors']} decode errors")
+        if not s_ate["pct"] <= s_gate:
+            fails.append(f"small world: keyframe ATE {s_ate['pct']:.4f} % above {s_gate:.4f} %")
+        if small_launches[0] < len(small["states"]) or not small_launches[1] or not small_launches[2]:
+            fails.append(f"small world launched K1-K3 {small_launches[:3]} times over {len(small['states'])} frames")
+        del small
+        gc.collect()
+
+        # The demo, with torch.profiler around two of its frames.
+        for fn in counters:
+            fn.launches = 0
+        trace_dir, tracing = d / "trace", contextlib.ExitStack()
+        trace = {"open": False, "frames": 0, "start": None}
+
+        def on_frame(i, slam):
+            now = [fn.launches for fn in counters[:3]]
+            if i == RD_TRACE_AFTER:
+                torch.cuda.synchronize()
+                tracing.enter_context(profiling.device_trace(trace_dir))
+                trace.update(open=True, start=now)
+            elif trace["open"]:
+                trace["frames"] += 1
+                if trace["frames"] >= 2 and all(a > b for a, b in zip(now, trace["start"])):
+                    torch.cuda.synchronize()
+                    tracing.close()
+                    trace["open"] = False
+
+        with tracing:
+            demo_out = demo.main([], on_frame=on_frame)
+        torch.cuda.synchronize()
+        demo_launches = launches()
+        n_traced = trace["frames"]
+        trace_files = sorted(trace_dir.glob("*.json"))
+        text = trace_files[0].read_text() if trace_files else ""
+        found = {k: name in text for k, name in RD_KERNEL_NAMES.items()}
+        log(json.dumps({"phase": "demo", "card": card, "ate_rmse": demo_out["ate"]["rmse"],
+                        "keyframes": demo_out["keyframes"], "landmarks": demo_out["landmarks"],
+                        "last_state": demo_out["states"][-1], "timing": demo_out["timing"],
+                        "launches": demo_launches, "traced_frames": n_traced, "trace_bytes": len(text),
+                        "kernels_in_trace": found}, default=float))
+        if not all(found.values()):
+            fails.append(f"the trace of {n_traced} demo frames lacks kernels: {found}")
+        if demo_out["states"][-1] != "OK" or not all(demo_launches[:3]):
+            fails.append(f"demo: last state {demo_out['states'][-1]}, launches K1-K3 {demo_launches[:3]}")
+
+    # FLOPs and MFU of one LM solve at bench's BA problem (W 10, M 4096).
+    gpu = to_device(BAProblem(**ba_world.bench_problem()), dev)
+    lm = lambda: bundle_adjust(gpu, n_iter=ADAM_LM_ITERS, huber=5.0 / FOCAL)  # noqa: E731
+    flops = profiling.flops_of(lm)
+    med, mn = timed(lm, reps=3, warmup=1)
+    util = profiling.mfu(flops, med / 1e3)
+    log(json.dumps({"phase": "lm_flops", "card": card, "W": gpu.n_poses, "M": gpu.n_points,
+                    "iterations": ADAM_LM_ITERS, "flops_products_only": flops, "ms": med, "ms_min": mn,
+                    "mfu_pct_products_only": util, "peak_flops": profiling.H100_FP32_PEAK_FLOPS}))
+    log(f"LM solve W={gpu.n_poses} M={gpu.n_points}, {ADAM_LM_ITERS} iterations: {flops} FLOPs (products only), "
+        f"{med:.2f} ms, MFU {util} % of the fp32 peak (products only; {card})")
+    log(f"run_dataset phase: {time.perf_counter() - t_phase:.1f} s, launches K1-K5 {total}")
+    if fails:
+        raise AssertionError("run_dataset: " + "; ".join(fails))
+    return total
+
+
 def run_pose_graphs(torch, np, dev):
     """bench_pose_graph's SE(3) problem and a drifted Sim(3) loop, both at
     PG_NODES: the cost must fall; ms per solve after one warm-up."""
@@ -4159,13 +4439,15 @@ def main() -> int:
     elapsed("the feature families")
     adam_launches = run_adam(torch, np, dev, counters, card) + [0]
     elapsed("the adam phase")
+    rd_launches = run_dataset(torch, np, dev, counters, card)
+    elapsed("the dataset phase")
     lp_launches, lp_k4, lp_k4_args = run_loop_pipeline(torch, np, dev, counters)
     elapsed("the loop pipeline")
     ss_launches = [0, ss["k2"], ss["k3"], 0, 0]
     k1b, k1l, sp_k2, sp_k3 = sp["launches_k1_batched_k1_levels_k2_k3"]
     sp_launches = [k1l, sp_k2, sp_k3, 0, 0]
     parts = list(zip(launches, ss_launches, loop_launches, fp_launches, sp_launches, facade_launches,
-                     stereo_launches, ff_launches, adam_launches, lp_launches))
+                     stereo_launches, ff_launches, adam_launches, rd_launches, lp_launches))
     for row, part in zip(rows, parts):
         row["launches"] = sum(part)
     for row, n in zip(rows[len(parts):], multiseq_launches):
@@ -4184,7 +4466,8 @@ def main() -> int:
         raise AssertionError(f"RGB-D phases launched the batched K1 {rgbd['k1_batched']} and K4 {rgbd['k4']} times")
     rows.append(k1_b8_row)
     log("launches per kernel (tracking, stereo step, loop path, full pipeline with its two async runs, stereo "
-        "pipeline, facade phases, stereo facade phases, feature families, the adam facade, loop pipeline phases "
+        "pipeline, facade phases, stereo facade phases, feature families, the adam facade, the dataset phase, loop "
+        "pipeline phases "
         "with the async and sparse passes): "
         f"{[(r['name'], *part) for r, part in zip(rows, parts)]}; K5 has no caller on any path; "
         f"batched (multiseq phase; stereo facade phases, the stereo step and the stereo pipeline ({k1b})), RGB-D "

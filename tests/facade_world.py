@@ -12,6 +12,9 @@ world sees the same frames and settings. Each ``*_config`` takes the
   2048, the initializer's ``min_inliers``), loop closing off.
 * ``e2e``: tests/test_slam_e2e.py's 12-frame 320x240 world and
   ``small_config``.
+* ``dataset``: the deploy world rounded to uint8, as the dataset phase's
+  PNG files hold it, with ``examples/run_dataset.py``'s configuration
+  (``dataset_config``: the defaults at 2000 features and 4 levels).
 * ``families``: the deploy world's first ``FAMILY_FRAMES`` frames and
   settings, with the detector and matcher of each feature family
   (``FAMILIES``): DoG SIFT + L2 (``sift_config``'s detector parameters),
@@ -51,6 +54,24 @@ def deploy_config(Config, num_features: int = 2000):
     cfg.optimization.point_bucket_floor = 2048
     cfg.initialization.min_inliers = min(100, max(30, num_features // 20))
     cfg.loop_closing.enabled = False
+    return cfg
+
+
+def dataset_frames(n_frames: int = 32):
+    """The deployment world's frames as ``chip_smoke.py``'s dataset phase
+    reads them from its PNG files: rounded and clipped to 0-255 (float32)."""
+    frames, K, Ts = deploy_frames(n_frames)
+    return np.clip(np.rint(frames), 0, 255).astype(np.float32), K, Ts
+
+
+def dataset_config(Config, num_features: int = 2000, levels: int = 4):
+    """``examples/run_dataset.py``'s configuration with ``--features`` and
+    ``--levels``: the defaults, the initializer's ``min_inliers`` scaled to
+    the feature budget."""
+    cfg = Config()
+    cfg.feature.num_features = num_features
+    cfg.feature.num_pyramid_levels = levels
+    cfg.initialization.min_inliers = min(cfg.initialization.min_inliers, max(30, num_features // 8))
     return cfg
 
 
@@ -168,10 +189,11 @@ def centers(Ts) -> np.ndarray:
     return np.stack([-T[:3, :3].T @ T[:3, 3] for T in Ts])
 
 
-def ate(ate_rmse, timestamps, Ts_est, Ts_gt) -> dict:
-    """Scale-aligned ATE of the poses at ``timestamps`` in metres and in %
-    of the ground-truth path from the first to the last of those frames."""
-    idx = [int(round(t / DT)) for t in timestamps]
+def ate(ate_rmse, timestamps, Ts_est, Ts_gt, dt: float = DT) -> dict:
+    """Scale-aligned ATE of the poses at ``timestamps`` (frame ``round(t /
+    dt)``) in metres and in % of the ground-truth path from the first to the
+    last of those frames."""
+    idx = [int(round(t / dt)) for t in timestamps]
     gt = centers(Ts_gt[idx[0]:idx[-1] + 1])
     path = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
     rmse = float(ate_rmse(centers(Ts_est), centers(Ts_gt[idx]), align_scale=True)["rmse"])

@@ -20,6 +20,7 @@ MODULES = [
     "visual_slam_tpu_torch.frontend.tracker",
     "visual_slam_tpu_torch.initializer",
     "visual_slam_tpu_torch.interop",
+    "visual_slam_tpu_torch.io.native",
     "visual_slam_tpu_torch.loop_closing",
     "visual_slam_tpu_torch.loop_closing.loop_closing",
     "visual_slam_tpu_torch.loop_closing.pose_graph",
@@ -39,7 +40,11 @@ MODULES = [
     "visual_slam_tpu_torch.tracking",
     "visual_slam_tpu_torch.utils.logging",
     "visual_slam_tpu_torch.utils.metrics",
+    "visual_slam_tpu_torch.utils.profiling",
     "visual_slam_tpu_torch.utils.tree",
+    "visual_slam_tpu_torch.viz",
+    "visual_slam_tpu_torch.viz.feature_viz",
+    "visual_slam_tpu_torch.viz.map_viz",
     "visual_slam_tpu_torch.ops.detector",
     "visual_slam_tpu_torch.ops.epipolar",
     "visual_slam_tpu_torch.ops.fast",

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -84,7 +84,10 @@ class Processing:
         self.config.camera.height = h
         self.slam = SLAM(self.camera, self.config, log_dir=log_dir, device=self.device)
 
-    def run(self, max_cycles: Optional[int] = None) -> dict:
+    def run(self, max_cycles: Optional[int] = None,
+            on_frame: Optional[Callable[[int, dict], None]] = None) -> dict:
+        """Feed the source's frames (at most ``max_cycles``) and shut down;
+        ``on_frame(i, info)`` sees each ``track`` call's info."""
         n = 0
         t0 = time.perf_counter()
         get_depth = getattr(self.source, "get_depth", None)
@@ -96,7 +99,9 @@ class Processing:
                 break
             images = img if isinstance(img, list) else [img]
             depth = get_depth(ts) if get_depth is not None and self.config.camera.sensor_type == "rgbd" else None
-            self.slam.track(images, ts, depth=depth)
+            info = self.slam.track(images, ts, depth=depth)
+            if on_frame is not None:
+                on_frame(n, info)
             n += 1
             if self.sleep_time > 0:
                 time.sleep(self.sleep_time)

@@ -1,1 +1,2 @@
-"""Host utilities (port of ``visual_slam_tpu.utils``): trajectory metrics."""
+"""Host utilities (port of ``visual_slam_tpu.utils``): trajectory metrics,
+checkpoint files, logging, profiling."""
