@@ -285,14 +285,33 @@
    LP_JAX's comment's. K4 is then held exactly against its plain version on
    the arguments of the on pass's detect with the most real candidate
    blocks (its shortlist) and timed.
-14. Prints a JSON line of the kernels, then ``{"ok": true, "device": ...}``
+14. ``optimization.lm_minor=True`` (``run_lm_minor``), which the port
+   solves on the dense grid (the JAX package's landmark-minor layout is
+   the same math laid out for the TPU):
+   a. the full pipeline of 7 with it, its gates with the ATE at most
+      max(2 x LM_JAX's JAX CPU run of it, 2.0 %), every solve dense;
+   b. the small ring of 13d with it and no checkpoint: OK, no LOST frame,
+      closures at the frames of 13d's pass, every solve and each closure's
+      global BA dense.
+15. Filters (``run_filters``): ``FeatureTracker`` on the card (its own
+   filters off) matches the deploy world's frame 1 against frame 0 and
+   frame 0 against a copy of it shifted FILTER_SHIFT px to the left;
+   ``filter_matches`` with FILTER_KW's filters (max distance, unique train,
+   orientation, two region masks; stereo rows on the shifted pair) and
+   RANSAC-F on FILTER_HYP draws of 8 distinct matches, and
+   ``filter_keypoints`` with the grid and NMS (FILTER_KP_KW) on frame 0's
+   2000 keypoints; every mask equal to the same calls on the CPU on the same
+   features and draws, RANSAC-F's within FILTER_RANSAC_DIFF entries; K1
+   three times, K2 twice; the phase's ms.
+16. Prints a JSON line of the kernels, then ``{"ok": true, "device": ...}``
    as the last line. Any failure raises and exits nonzero.
 
 K5 has no caller in either package: only phase 3 launches it. The
 kernels' launch counts add up the tracking, stereo step, loop,
 full-pipeline, stereo pipeline, facade, stereo facade, feature-family (its
 detectors and facade runs), adam (its facade run), dataset (its runs and the
-demo) and loop pipeline phases; the batched rows' count the batched VO phase's batched steps, the
+demo), loop pipeline, lm_minor (its full pipeline and small ring) and
+filters phases; the batched rows' count the batched VO phase's batched steps, the
 B = 2 row's the stereo facade phases', the stereo step's and the stereo
 pipeline's pairs, the B = 8 row's the batched
 stereo step's, the RGB-D rows' the RGB-D facade phases' and the RGB-D
@@ -519,6 +538,31 @@ RD_POSE_ATOL = 1e-5  # m, native against in-memory keyframe centres (expected id
 RD_EXPORT_ATOL = 1e-5  # the TUM and KITTI rows against the keyframe poses
 RD_TRACE_AFTER = 9  # the demo's frames traced start after this one: two, or until K1-K3 have each launched
 RD_KERNEL_NAMES = {"K1": "patches_moments_kernel", "K2": "hamming_tile_kernel", "K3": "guided_top2_kernel"}
+# optimization.lm_minor=True (run_lm_minor). (a) The full pipeline with it:
+# its ATE gate max(2 x LM_JAX["fp_ate_pct"], 2.0 %), the JAX package's CPU
+# run of the same configuration, landmark-minor
+# (scripts/heavy_modes_reference.py --impl jax --passes fp-lm). (b) The small
+# ring with it: its closures at the frames of this run's small ring pass
+# (JAX's CPU run closes at LM_JAX["small_closures"]).
+LM_JAX = {"fp_ate_pct": 0.4227244346349243, "small_closures": [95]}
+LM_ATE_PCT_FLOOR = 2.0
+# The filters phase (run_filters): FeatureTracker on the deploy world's
+# frames 0 and 1 and on frame 0 beside a copy of it shifted FILTER_SHIFT px to
+# the left (a rectified pair of that disparity), filter_matches with every
+# filter on (FILTER_KW; stereo rows on the shifted pair only) and RANSAC-F on
+# FILTER_HYP draws of 8 distinct matches, filter_keypoints with the grid and
+# NMS (FILTER_KP_KW) on frame 0's 2000 keypoints; every mask as the CPU's.
+# RANSAC-F's mask may differ from the CPU's in FILTER_RANSAC_DIFF entries
+# (ROADMAP's rule for ransac_fundamental on injected draws): on CUDA tensors
+# its null vectors take JAX's accelerator route (smallest_eigvec_psd), on
+# CPU tensors eigh, and the routes part on points at the threshold (on the
+# CPU, even in float64 one point of the shifted pair's 1589). Every other
+# mask is exact.
+FILTER_SHIFT, FILTER_HYP, FILTER_SEED, FILTER_RANSAC_DIFF = 24, 128, 0, 2
+FILTER_KW = dict(use_orientation=True, use_mask_regions=True, use_max_distance=True, use_unique=True,
+                 mask_regions=[[0.0, 0.0, 300.0, 120.0], [940.0, 250.0, 1240.0, 376.0], [0.0, 0.0, 0.0, 0.0]],
+                 max_distance=48.0, row_tolerance=2.0, min_disparity=0.0, max_disparity=64.0)
+FILTER_KP_KW = dict(use_grid=True, use_nms=True, grid=8, per_cell=24, nms_radius=6.0)
 # (c) K2 and K4 past the 5800 train rows the 32-bit row partial held them
 # to: K2 at 2000 queries against each of K2_WIDE_ROWS train rows, K4 with
 # K4_WIDE_C candidate blocks of those rows, both exact against their plain
@@ -2089,7 +2133,7 @@ def boundary_stages(slam, cs_mod):
     return stage_ms, timing, undo
 
 
-def run_full_pipeline(torch, np, dev, counters, async_boundary=False, sync_check=False):
+def run_full_pipeline(torch, np, dev, counters, async_boundary=False, sync_check=False, lm_minor=False):
     """The deployment bench.bench_full_pipeline times, through the port's
     entry points: CompiledSLAM(camera, config).track() per frame, flush(),
     trajectory(). Bootstrap within 16 frames, warm through two heavy cycles
@@ -2099,8 +2143,10 @@ def run_full_pipeline(torch, np, dev, counters, async_boundary=False, sync_check
     FP_ASYNC_ATE_PCT_MAX; with ``sync_check`` the host syncs are counted
     over the whole run (FPS then includes the counting) and no host sync of
     the solve's code or the boundary's may lie between an async solve's
-    start and the next chunk's fetch. Returns (launches of ``counters``
-    over the run, report dict); raises if a gate fails."""
+    start and the next chunk's fetch. ``lm_minor``: the same with
+    ``optimization.lm_minor=True``, gated on max(2 x LM_JAX["fp_ate_pct"],
+    LM_ATE_PCT_FLOOR) and on every solve dense. Returns (launches of
+    ``counters`` over the run, report dict); raises if a gate fails."""
     import bench
 
     from visual_slam_tpu_torch.backend.ba import bundle_adjust_robust
@@ -2118,8 +2164,11 @@ def run_full_pipeline(torch, np, dev, counters, async_boundary=False, sync_check
         f"rendered in {time.perf_counter() - t0:.2f} s")
     cfg = fp_config(Config)
     cfg.tracking.async_boundary = async_boundary
-    name = "full pipeline" + (", async" if async_boundary else "") + (" (syncs counted)" if sync_check else "")
-    ate_max = FP_ASYNC_ATE_PCT_MAX if async_boundary else FP_ATE_PCT_MAX
+    cfg.optimization.lm_minor = lm_minor
+    name = ("full pipeline" + (", async" if async_boundary else "") + (", lm_minor" if lm_minor else "")
+            + (" (syncs counted)" if sync_check else ""))
+    ate_max = (FP_ASYNC_ATE_PCT_MAX if async_boundary else
+               max(2 * LM_JAX["fp_ate_pct"], LM_ATE_PCT_FLOOR) if lm_minor else FP_ATE_PCT_MAX)
     cam = PinholeCamera(width=W, height=H, K=np.asarray(K_np, np.float64))
     torch.cuda.reset_peak_memory_stats()
     slam = CompiledSLAM(cam, cfg, device=dev)
@@ -2324,6 +2373,8 @@ def run_full_pipeline(torch, np, dev, counters, async_boundary=False, sync_check
     if sync_check and report["window_solve_syncs"]:
         raise AssertionError(f"{name}: host syncs of the solve or the boundary between an async solve's start and "
                              f"the next fetch: {report['window_syncs']}")
+    if lm_minor and (hc["solves_sparse"] or not hc["solves_dense"]):
+        raise AssertionError(f"{name}: solves dense / sparse {hc['solves_dense']} / {hc['solves_sparse']}")
 
     if async_boundary:  # its first heavy boundaries are the sync run's, checked there
         return launches, report
@@ -2341,7 +2392,7 @@ def run_full_pipeline(torch, np, dev, counters, async_boundary=False, sync_check
     c_gpu, c_cpu = float(pending["info"]["cost"]), float(info_cpu["cost"])
     c0_gpu, c0_cpu = float(pending["info"]["cost0"]), float(info_cpu["cost0"])
     d_pose = float((pending["T"].cpu() - T_cpu).abs().max())
-    log(f"first heavy BA ({pending['problem'].T_w2c.shape[0]}x{pending['problem'].points.shape[0]}, "
+    log(f"{name}: first heavy BA ({pending['problem'].T_w2c.shape[0]}x{pending['problem'].points.shape[0]}, "
         f"{int(pending['problem'].obs_valid.sum())} observations), card vs CPU ({cpu_s:.2f} s): cost0 {c0_gpu:.6g} "
         f"vs {c0_cpu:.6g}, cost {c_gpu:.6g} vs {c_cpu:.6g}, poses max abs diff {d_pose:.2e}")
     if abs(c_gpu - c_cpu) > BA_COST_RTOL * abs(c_cpu) or abs(c0_gpu - c0_cpu) > BA_COST_RTOL * abs(c0_cpu):
@@ -3552,7 +3603,8 @@ def run_loop_pipeline(torch, np, dev, counters):
     checkpoint, and, where the JAX package's on pass closes no loop, the
     small ring where its test asserts one. Returns (launches of ``counters``
     over the phase, K4's launches, and the arguments of the on pass's K4
-    call with the most real candidate blocks); raises if a gate fails."""
+    call with the most real candidate blocks, the small ring pass's report
+    or None); raises if a gate fails."""
     import shutil
     import tempfile
 
@@ -3741,7 +3793,7 @@ def run_loop_pipeline(torch, np, dev, counters):
     if fails:
         raise AssertionError("loop pipeline gates: " + "; ".join(fails))
     k4 = sum(r["launches_k1_k5"][3] for r in (on, res, small, *modes.values()) if r)
-    return total, k4, captured[1] if captured else None
+    return total, k4, captured[1] if captured else None, small
 
 
 def run_ba_layouts(torch, np, dev) -> list[dict]:
@@ -4214,6 +4266,130 @@ def run_dataset(torch, np, dev, counters, card) -> list[int]:
     return total
 
 
+def run_lm_minor(torch, np, dev, counters, card, small_dense) -> list[int]:
+    """Phase 14 (the module docstring's item 14): ``optimization.lm_minor=True``.
+    ``small_dense``: the loop pipeline phase's small ring report (its
+    closures are the gate's). Returns the phase's K1-K5 launches."""
+    import loop_pipeline_world as lpw
+
+    from visual_slam_tpu_torch.camera import PinholeCamera
+    from visual_slam_tpu_torch.config import Config
+    from visual_slam_tpu_torch.models import CompiledSLAM
+
+    t = [time.perf_counter()]
+    fp_launches, fp = run_full_pipeline(torch, np, dev, counters, lm_minor=True)
+    t.append(time.perf_counter())
+    frames, K, T_gt = lpw.small_ring_frames()
+    cfg = lpw.small_ring_config(Config)
+    cfg.optimization.lm_minor = True
+    h, w = frames[0].shape
+    ring = loop_pass(torch, np, CompiledSLAM(PinholeCamera(width=w, height=h, K=K), cfg, device=dev), frames, T_gt,
+                     counters, "small_lm")
+    t.append(time.perf_counter())
+    frames_lm = [c["frame"] for c in ring["closures"]]
+    frames_dense = None if small_dense is None else [c["frame"] for c in small_dense["closures"]]
+    log(f"lm_minor small ring: closures at frames {frames_lm} (the small ring pass {frames_dense}, JAX's CPU run "
+        f"{LM_JAX['small_closures']}), global BA sparse {ring['closing_ba_sparse']}, global BA ms "
+        f"{[round(c.get('global_ba_ms', 0), 1) for c in ring['closures']]}, solves dense / sparse "
+        f"{ring['solves_dense']} / {ring['solves_sparse']}, ATE "
+        f"{ring['ate_pct_of_path']:.3f} %, LOST {ring['lost']}, state {ring['state']}")
+    fails = []
+    if ring["lost"] or ring["state"] != "OK":
+        fails.append(f"small ring: {ring['lost']} LOST frames, state {ring['state']}")
+    if not frames_lm or (frames_dense is not None and frames_lm != frames_dense):
+        fails.append(f"small ring: closures at frames {frames_lm}, the small ring pass's at {frames_dense}")
+    if not ring["closing_ba_sparse"] or any(ring["closing_ba_sparse"]):
+        fails.append(f"small ring: closing BA sparse {ring['closing_ba_sparse']}")
+    if ring["solves_sparse"] or not ring["solves_dense"]:
+        fails.append(f"small ring: solves dense / sparse {ring['solves_dense']} / {ring['solves_sparse']}")
+    if fails:
+        raise AssertionError("lm_minor: " + "; ".join(fails))
+    log(f"lm_minor phase: {t[2] - t[0]:.1f} s (a {t[1] - t[0]:.1f}, b {t[2] - t[1]:.1f}); "
+        f"full pipeline ATE {fp['ate_pct_of_path']:.3f} % (gate {max(2 * LM_JAX['fp_ate_pct'], LM_ATE_PCT_FLOOR):.3f}), "
+        f"FPS {fp['fps']:.2f}, solves dense {fp['solves_dense']}; launches K1-K5 full pipeline "
+        f"{fp_launches}, small ring {ring['launches_k1_k5']} ({card})")
+    return [a + b for a, b in zip(fp_launches, ring["launches_k1_k5"])]
+
+
+def filter_chain(torch, np, result, kw, sample_idx=None):
+    """``filter_matches`` over ``result``: the filters of ``kw`` alone, then
+    with RANSAC-F on ``sample_idx`` (n_hyp, 8), or on FILTER_HYP draws of 8
+    distinct entries of the first mask (numpy, FILTER_SEED). Returns (first
+    mask, final mask, sample_idx) on the result's device."""
+    from visual_slam_tpu_torch.frontend.filters import filter_matches
+
+    pre = filter_matches(result, use_ransac_fund_matrix=False, **kw).valid
+    if sample_idx is None:
+        rng = np.random.default_rng(FILTER_SEED)
+        live = np.nonzero(pre.cpu().numpy())[0]
+        sample_idx = torch.from_numpy(np.stack([rng.choice(live, 8, replace=False) for _ in range(FILTER_HYP)]))
+    final = filter_matches(result, sample_idx=sample_idx.to(pre.device), ransac_hypotheses=FILTER_HYP, **kw).valid
+    return pre, final, sample_idx
+
+
+def filter_pairs(torch, np, tracker, frames):
+    """Two match tables by ``tracker`` (its own filters off): frame 1
+    against frame 0, and frame 0 (left) against a copy of it shifted
+    FILTER_SHIFT px to the left (right; disparity FILTER_SHIFT). Returns
+    (frame 0's features, {name: (result, filter kwargs)})."""
+    right = np.zeros_like(frames[0])
+    right[:, :-FILTER_SHIFT] = frames[0][:, FILTER_SHIFT:]
+    f0 = tracker.detectAndCompute(frames[0])
+    motion = tracker.match(tracker.detectAndCompute(frames[1]), f0)
+    stereo = tracker.match(f0, tracker.detectAndCompute(right))
+    return f0, {"motion": (motion, dict(FILTER_KW)), "stereo": (stereo, dict(FILTER_KW, use_stereo=True))}
+
+
+def run_filters(torch, np, dev, counters, card) -> list[int]:
+    """Phase 15 (the module docstring's item 15): the match and keypoint
+    filters on the card against the same calls on the CPU, on the same
+    features. Returns the phase's K1-K5 launches."""
+    import facade_world as fw
+
+    from visual_slam_tpu_torch.config import Config
+    from visual_slam_tpu_torch.frontend import FeatureTracker, FeatureTrackingResult
+    from visual_slam_tpu_torch.ops.keypoint_filters import filter_keypoints
+    from visual_slam_tpu_torch.utils.tree import to_device
+
+    t0 = time.perf_counter()
+    frames, _, _ = fw.deploy_frames(2)
+    cfg = fw.deploy_config(Config)
+    cfg.feature.filter_params = dict(use_orientation=False, use_ransac_fund_matrix=False)
+    tracker = FeatureTracker(cfg.feature, device=dev)
+    for fn in counters:
+        fn.launches = 0
+    f0, pairs = filter_pairs(torch, np, tracker, frames)
+    torch.cuda.synchronize()
+    launches = [fn.launches for fn in counters]
+    t1 = time.perf_counter()
+    report, fails = dict(phase="filters", card=card), []
+    for name, (res, kw) in pairs.items():
+        pre, final, idx = filter_chain(torch, np, res, kw)
+        torch.cuda.synchronize()
+        cpu = FeatureTrackingResult(to_device(res.features1, "cpu"), to_device(res.features2, "cpu"),
+                                    res.train_idx.cpu(), res.distance.cpu(), res.valid.cpu())
+        pre_c, final_c, _ = filter_chain(torch, np, cpu, kw, sample_idx=idx)
+        n = [int(x.sum()) for x in (res.valid, pre, final)]
+        diff = [int((a.cpu() != b).sum()) for a, b in ((pre, pre_c), (final, final_c))]
+        report[name] = dict(matches=n[0], after_filters=n[1], after_ransac=n[2], differ_from_cpu=diff)
+        if n[2] < 20 or n[1] >= n[0] or diff[0] or diff[1] > FILTER_RANSAC_DIFF:
+            fails.append(f"{name}: matches {n}, masks off the CPU's in {diff} entries")
+    kp = filter_keypoints(f0, W, H, **FILTER_KP_KW).valid
+    kp_c = filter_keypoints(to_device(f0, "cpu"), W, H, **FILTER_KP_KW).valid
+    torch.cuda.synchronize()
+    report["keypoints"] = dict(valid=int(f0.valid.sum()), kept=int(kp.sum()), differ_from_cpu=int((kp.cpu() != kp_c).sum()))
+    if report["keypoints"]["differ_from_cpu"] or not 0 < report["keypoints"]["kept"] < report["keypoints"]["valid"]:
+        fails.append(f"keypoints: {report['keypoints']}")
+    expected = [3, 2, 0, 0, 0]
+    report.update(launches_k1_k5=launches, track_ms=(t1 - t0) * 1e3, filters_ms=(time.perf_counter() - t1) * 1e3)
+    log(json.dumps(report))
+    if launches != expected:
+        fails.append(f"launches K1-K5 {launches} != {expected}")
+    if fails:
+        raise AssertionError("filters: " + "; ".join(fails))
+    return launches
+
+
 def run_pose_graphs(torch, np, dev):
     """bench_pose_graph's SE(3) problem and a drifted Sim(3) loop, both at
     PG_NODES: the cost must fall; ms per solve after one warm-up."""
@@ -4441,13 +4617,18 @@ def main() -> int:
     elapsed("the adam phase")
     rd_launches = run_dataset(torch, np, dev, counters, card)
     elapsed("the dataset phase")
-    lp_launches, lp_k4, lp_k4_args = run_loop_pipeline(torch, np, dev, counters)
+    lp_launches, lp_k4, lp_k4_args, lp_small = run_loop_pipeline(torch, np, dev, counters)
     elapsed("the loop pipeline")
+    lm_launches = run_lm_minor(torch, np, dev, counters, card, lp_small)
+    elapsed("the lm_minor phase")
+    filter_launches = run_filters(torch, np, dev, counters, card)
+    elapsed("the filters phase")
     ss_launches = [0, ss["k2"], ss["k3"], 0, 0]
     k1b, k1l, sp_k2, sp_k3 = sp["launches_k1_batched_k1_levels_k2_k3"]
     sp_launches = [k1l, sp_k2, sp_k3, 0, 0]
     parts = list(zip(launches, ss_launches, loop_launches, fp_launches, sp_launches, facade_launches,
-                     stereo_launches, ff_launches, adam_launches, rd_launches, lp_launches))
+                     stereo_launches, ff_launches, adam_launches, rd_launches, lp_launches, lm_launches,
+                     filter_launches))
     for row, part in zip(rows, parts):
         row["launches"] = sum(part)
     for row, n in zip(rows[len(parts):], multiseq_launches):
@@ -4467,8 +4648,7 @@ def main() -> int:
     rows.append(k1_b8_row)
     log("launches per kernel (tracking, stereo step, loop path, full pipeline with its two async runs, stereo "
         "pipeline, facade phases, stereo facade phases, feature families, the adam facade, the dataset phase, loop "
-        "pipeline phases "
-        "with the async and sparse passes): "
+        "pipeline phases with the async and sparse passes, the lm_minor phase, the filters phase): "
         f"{[(r['name'], *part) for r, part in zip(rows, parts)]}; K5 has no caller on any path; "
         f"batched (multiseq phase; stereo facade phases, the stereo step and the stereo pipeline ({k1b})), RGB-D "
         f"facade phases and RGB-D pipeline (K1 {rp_k1}, K2 {rp_k2}, K3 {rp_k3}) and the batched stereo step: "

@@ -11,10 +11,17 @@ package's ``CompiledSLAM`` on the CPU, one JSON line per pass:
   boundary on;
 * ``loop-sparse``: the same ring with ``optimization.sparse_obs="auto"``
   (the sparse landmark-major BA from a pose bucket of 32, so every solve of
-  this configuration, whose bucket floor is 32).
+  this configuration, whose bucket floor is 32);
+* ``fp-lm``: the full pipeline's world and configuration with
+  ``optimization.lm_minor=True`` (the JAX package solves it landmark-minor,
+  the port on its dense grid);
+* ``small-ring-lm``: the small ring (test_compiled_slam_devpromo_loop_closing's
+  world, ``tests/loop_pipeline_world.small_ring_frames``, 320x240, 100
+  frames, loop closing on) with ``lm_minor=True``.
 
     JAX_PLATFORMS=cpu python scripts/heavy_modes_reference.py --impl jax
     python scripts/heavy_modes_reference.py --impl torch --passes loop-sparse --frames 72
+    JAX_PLATFORMS=cpu python scripts/heavy_modes_reference.py --impl jax --passes fp-lm small-ring-lm
 
 Each line holds the scale-aligned ATE (metres, % of the path), LOST frames,
 the final state, keyframes, landmarks, the closures (closing keyframe's
@@ -39,7 +46,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tests"))
 
-PASSES = ("fp-async", "loop-async", "loop-sparse")
+PASSES = ("fp-async", "loop-async", "loop-sparse", "fp-lm", "small-ring-lm")
 
 
 def main() -> int:
@@ -73,17 +80,22 @@ def main() -> int:
 
     for name in args.passes:
         t0 = time.perf_counter()
-        if name == "fp-async":
+        if name.startswith("fp-"):
             frames, K, T_gt = bench.synth_kitti_frames(n_frames=cs.FP_FRAMES, H=cs.H, W=cs.W, f=cs.FOCAL,
                                                        n_sprites=cs.FP_SPRITES, seed=cs.FP_SEED, step=cs.FP_STEP)
             cfg = cs.fp_config(Config)
+        elif name.startswith("small-ring"):
+            frames, K, T_gt = lpw.small_ring_frames(args.frames or 100)
+            cfg = lpw.small_ring_config(Config)
         else:
             frames, K, T_gt = lpw.loop_frames(args.frames or lpw.N_FRAMES)
             cfg = lpw.loop_config(Config, True)
         if name.endswith("async"):
             cfg.tracking.async_boundary = True
-        else:
+        elif name.endswith("sparse"):
             cfg.optimization.sparse_obs = "auto"
+        else:
+            cfg.optimization.lm_minor = True
         print(f"# {name}: rendered {len(frames)} frames in {time.perf_counter() - t0:.1f} s", file=sys.stderr,
               flush=True)
         h, w = frames[0].shape

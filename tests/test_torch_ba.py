@@ -125,15 +125,25 @@ def test_reimpose_mono_gauge_exact_float64():
     assert not np.array_equal(Tt, T)  # it moved the free poses
 
 
-@pytest.mark.parametrize("opt,value,window", [
-    ("lm_minor", True, 8),
+@pytest.mark.parametrize("sparse_obs,lm_minor,window,sparse", [
+    (False, True, 8, False),
+    (True, True, 8, True),  # the sparse rule comes first
+    ("auto", True, 32, True),
+    ("auto", True, 16, False),
+    (False, "auto", 8, False),
+    (False, False, 8, False),
 ])
-def test_unported_layouts_raise(opt, value, window):
+def test_layout_dispatch_follows_jax(sparse_obs, lm_minor, window, sparse):
+    """``LMOptimizer``'s layout rule is the JAX package's off the TPU: the
+    sparse layout with ``sparse_obs=True``, or ``"auto"`` from
+    ``sparse_auto_min_window`` = 32; otherwise the dense grid, whatever
+    ``lm_minor`` says (the port's landmark-minor names are the dense
+    solver)."""
     cfg = Config()
-    setattr(cfg.optimization, opt, value)
-    camera = SimpleNamespace(K=np.diag([500.0, 500.0, 1.0]))
-    with pytest.raises(NotImplementedError):
-        LMOptimizer(cfg, camera, device="cpu").solve_start([], [], w_bucket=window)
+    cfg.optimization.sparse_obs, cfg.optimization.lm_minor = sparse_obs, lm_minor
+    opt = LMOptimizer(cfg, SimpleNamespace(K=np.diag([300.0, 300.0, 1.0])), device="cpu")
+    assert opt._use_sparse(window) is sparse
+    assert tba.bundle_adjust_robust_lm is tba.bundle_adjust_robust and tba.bundle_adjust_lm is tba.bundle_adjust
 
 
 def test_auto_layouts_resolve_to_dense():

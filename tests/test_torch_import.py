@@ -15,6 +15,7 @@ MODULES = [
     "visual_slam_tpu_torch.config",
     "visual_slam_tpu_torch.frontend",
     "visual_slam_tpu_torch.frontend.feature_manager",
+    "visual_slam_tpu_torch.frontend.filters",
     "visual_slam_tpu_torch.frontend.features",
     "visual_slam_tpu_torch.frontend.matcher",
     "visual_slam_tpu_torch.frontend.tracker",
@@ -49,6 +50,7 @@ MODULES = [
     "visual_slam_tpu_torch.ops.epipolar",
     "visual_slam_tpu_torch.ops.fast",
     "visual_slam_tpu_torch.ops.guided_matching",
+    "visual_slam_tpu_torch.ops.keypoint_filters",
     "visual_slam_tpu_torch.ops.lie",
     "visual_slam_tpu_torch.ops.linalg",
     "visual_slam_tpu_torch.ops.match_kernels",

@@ -30,8 +30,12 @@ float atomics in an order that changes from run to run, and at (W, M, K) =
 each observation's block into its (landmark, pose) slot (one observation
 per pair, so the scatter adds only exact zeros from empty slots) and
 contracts the landmarks away in one (6W, 3M) x (3M, 6W) matmul, as the
-dense solver does. The landmark-minor layout is not ported: it exists for
-the TPU's (8, 128) tiling.
+dense solver does.
+
+``bundle_adjust_lm`` and ``bundle_adjust_robust_lm`` are the JAX package's
+names for its landmark-minor layout (``optimization.lm_minor=True``), which
+lays the same dense grid out for the TPU's (8, 128) tiling and matches the
+dense solver to float32 rounding. Here they are the dense solver itself.
 """
 from __future__ import annotations
 
@@ -282,6 +286,10 @@ def bundle_adjust_robust(
     the kept set. info: cost0, cost, obs_kept (M, W), n_trimmed."""
     return _two_stage(problem, bundle_adjust, lambda T, X: residual_norms(T, X, problem.uv, problem.obs_valid),
                       n_iter, n_iter2, huber, lam0, trim_factor)
+
+
+bundle_adjust_lm = bundle_adjust
+bundle_adjust_robust_lm = bundle_adjust_robust
 
 
 # ---------------------------------------------------------------- sparse

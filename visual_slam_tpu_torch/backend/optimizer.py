@@ -17,9 +17,9 @@ the sparse landmark-major one (``obs_cap`` observation slots a landmark;
 a landmark seen more often in the window keeps an evenly spread subset
 for that solve). ``sparse_obs="auto"`` takes the sparse layout from a pose
 bucket of ``sparse_auto_min_window`` on, the JAX package's rule for every
-backend but the TPU. ``lm_minor=True`` raises ``NotImplementedError``;
-``lm_minor="auto"`` resolves to False, since the landmark-minor layout
-exists for the TPU's tiling.
+backend but the TPU. ``optimization.lm_minor`` is accepted and solves on
+the dense grid: the JAX package's landmark-minor layout is the same math
+laid out for the TPU's tiling (``backend.ba.bundle_adjust_robust_lm``).
 """
 from __future__ import annotations
 
@@ -214,10 +214,8 @@ class LMOptimizer(BaseOptimizer):
     def _use_sparse(self, w_bucket: int) -> bool:
         """The layout of a solve with pose bucket ``w_bucket``: sparse with
         ``sparse_obs=True``, or with ``"auto"`` from ``sparse_auto_min_window``
-        on. ``lm_minor=True`` raises: it is not ported."""
+        on."""
         cfg = self.config.optimization
-        if cfg.lm_minor != "auto" and bool(cfg.lm_minor):
-            raise NotImplementedError("landmark-minor bundle adjustment is not ported yet")
         if cfg.sparse_obs == "auto":
             return w_bucket >= cfg.sparse_auto_min_window
         return bool(cfg.sparse_obs)

@@ -53,8 +53,10 @@ without one leaves the system ``INITIALIZING``), after which the mono step,
 the mono chunks and mono promotion with triangulation run, and
 relocalization ignores depth.
 
-Not ported, each raising ``NotImplementedError`` when its switch is on:
-landmark-minor bundle adjustment (``optimization.lm_minor``) and ragged
+``optimization.lm_minor=True`` is accepted and solves on the dense grid
+(``backend.optimizer``).
+
+Not ported, raising ``NotImplementedError`` when its switch is on: ragged
 descriptors.
 
 ``save(path)`` checkpoints the map, the trajectory and the config in the

@@ -13,6 +13,8 @@ the query side. The filters take leading batch
 dimensions (one row per candidate block); ``match_descriptors`` takes a
 leading B on both sides (B query blocks, each against its own train block:
 the batched VO step), which goes through K2 once as ``hamming_top2_paired``.
+``stereo_epipolar_filter`` and ``region_mask_filter`` are the match
+filters of ``frontend.filters.filter_matches``.
 """
 from __future__ import annotations
 
@@ -107,13 +109,49 @@ def orientation_filter(
     two_pi = 2.0 * math.pi
     da = torch.fmod(angle1 - angle2.gather(-1, ti), two_pi)
     da = torch.where((da != 0) & (da < 0), da + two_pi, da)
-    bins = torch.clamp((da / two_pi * n_bins).to(torch.int32), 0, n_bins - 1).long()
+    # The divisor as a tensor on da's device: CUDA divides by a Python number
+    # through its reciprocal, which moves a difference on a bin's edge into
+    # the bin below; JAX divides exactly.
+    period = torch.tensor(two_pi, dtype=da.dtype, device=da.device)
+    bins = torch.clamp((da / period * n_bins).to(torch.int32), 0, n_bins - 1).long()
     batch = ok.shape[:-1]
     hist = torch.zeros(batch + (n_bins,), dtype=torch.int64, device=ok.device)
     hist = hist.scatter_add(-1, bins, ok.to(torch.int64))
     order = torch.sort(-hist, dim=-1, stable=True).indices
     keep = torch.zeros(batch + (n_bins,), dtype=torch.bool, device=ok.device).scatter(-1, order[..., :keep_bins], True)
     return ok & keep.gather(-1, bins)
+
+
+def stereo_epipolar_filter(
+    xy1: torch.Tensor,
+    xy2: torch.Tensor,
+    ti: torch.Tensor,
+    ok: torch.Tensor,
+    row_tolerance: float = 2.0,
+    min_disparity: float = 0.0,
+    max_disparity: float = 1e9,
+) -> torch.Tensor:
+    """Rectified-stereo consistency of the matches: the same row within
+    ``row_tolerance``, a disparity in (``min_disparity``, ``max_disparity``).
+    xy1 are the left keypoints, xy2 the right ones indexed by ``ti``.
+    Returns the updated ``ok``."""
+    p2 = xy2[ti.long()]
+    dv = torch.abs(xy1[:, 1] - p2[:, 1])
+    disp = xy1[:, 0] - p2[:, 0]
+    return ok & (dv <= row_tolerance) & (disp > min_disparity) & (disp < max_disparity)
+
+
+def region_mask_filter(xy: torch.Tensor, ok: torch.Tensor, regions, exclude: bool = True) -> torch.Tensor:
+    """Drop (``exclude``) or keep only the matches whose query keypoint
+    lies in any of the axis-aligned ``regions`` (R, 4) [x0, y0, x1, y1];
+    empty rows (x1 <= x0 or y1 <= y0: padding) match nothing. Returns the
+    updated ``ok``."""
+    regions = torch.as_tensor(regions, dtype=torch.float32).to(xy.device)
+    x, y = xy[:, 0, None], xy[:, 1, None]
+    x0, y0, x1, y1 = regions.unbind(-1)
+    nonempty = (x1 > x0) & (y1 > y0)
+    inside = ((x >= x0) & (x < x1) & (y >= y0) & (y < y1) & nonempty).any(dim=1)
+    return ok & (~inside if exclude else inside)
 
 
 def match_descriptors(
